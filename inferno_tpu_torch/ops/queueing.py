@@ -6,18 +6,21 @@ a lane of a [P]-shaped batch and the whole fleet is sized at once:
 * the stationary distribution is log-space: since
   log p[k] = k·log(lam) − Σ_{j≤k} log mu(j), the service-rate cumsum is
   independent of the arrival rate and is hoisted out of the search;
-* bisection is a fixed 32-step Python loop (no early exit) whose body
-  solves all lanes at once;
+* bisection is a fixed 32-step loop (no early exit) over all lanes at
+  once: a Python loop with one stationary solve a step in the plain
+  version (`_bisect_plain`), one launch of `bisect_kernel` on the card;
 * the grid covers only the head states k = 0..max_batch; the queue tail
   beyond max_batch is a geometric series folded in closed form
   (`_fold_tail`), exactly as in the reference;
 * callers bucket lanes by max batch (parallel.fleet).
 
-The stationary solve is the one kernel of this module: `_solve_stats` is
-its plain torch version, `ops.cuda_queueing.solve_stats` launches the
-hand-written CUDA kernel (`_get_solver`). The reference's op order is
-kept everywhere so f32 results track XLA's; tensors stay f32 (i32 for
-counts) and every constant is built in f32.
+Two hand-written CUDA kernels serve this module (`use_kernel=True`): the
+stationary solve, whose plain torch version is `_solve_stats` and whose
+wrapper is `ops.cuda_queueing.solve_stats` (`_get_solver`), and the whole
+bisection, whose plain version is `_bisect_plain` and whose wrapper is
+`ops.cuda_queueing.bisect` (`_bisect`). The reference's op order is kept
+everywhere so f32 results track XLA's; tensors stay f32 (i32 for counts)
+and every constant is built in f32.
 
 Left out against the reference: the `jax.jit` factories
 (`make_fleet_size_fn`, `make_tandem_size_fn`, `make_fleet_size_packed_fn`);
@@ -341,6 +344,103 @@ def _bisect_increasing(
     return lam, feasible
 
 
+# The four metrics the sizing programs bisect on, and the number of rows of
+# per-lane constants each takes (csrc/bisect_kernel.cu's enums match).
+AGG_TTFT, AGG_ITL, TAN_TTFT, TAN_ITL = range(4)
+BISECT_METRICS = {AGG_TTFT: 8, AGG_ITL: 8, TAN_TTFT: 7, TAN_ITL: 7}
+
+
+class BisectCase(NamedTuple):
+    """One bisection of a sizing program over all lanes of a bucket: the
+    inputs of `_bisect_increasing` with its metric named by `metric` and
+    evaluated from `consts` (`_bisect_metric`) instead of a closure."""
+
+    metric: int  # AGG_TTFT, AGG_ITL, TAN_TTFT or TAN_ITL
+    lam_min: torch.Tensor  # [P] req/msec
+    lam_max: torch.Tensor  # [P] req/msec
+    target: torch.Tensor  # [P] the SLO
+    y_lo: torch.Tensor  # [P] the metric at lam_min
+    y_hi: torch.Tensor  # [P] the metric at lam_max
+    consts: torch.Tensor  # f32[C, P]: `_agg_bisect_consts` or `_tandem_bisect_consts`
+    gp: _Grid  # the lane's grid (the prefill stage's for tandem lanes)
+    gd: _Grid | None  # the decode stage's grid (TAN_ITL only)
+    wait_margin: float  # scales the queueing wait of TTFT metrics
+
+
+def _agg_bisect_consts(p: FleetParams) -> torch.Tensor:
+    """Per-lane constants of the aggregated metrics, by the expressions of
+    `_concurrency` and `_ttft_itl_at`: [base, slope, max batch, gamma,
+    delta*in_tokens, in_tokens, alpha, beta]."""
+    tokens = p.out_tokens - 1.0
+    return torch.stack([
+        p.gamma + p.alpha * tokens,
+        p.delta * p.in_tokens + p.beta * tokens,
+        p.max_batch.to(_F32),
+        p.gamma,
+        p.delta * p.in_tokens,
+        p.in_tokens,
+        p.alpha,
+        p.beta,
+    ])
+
+
+def _tandem_bisect_consts(p: TandemParams) -> torch.Tensor:
+    """Per-lane constants of the tandem metrics, by the expressions of
+    `_tandem_ttft_at` and `_tandem_eval`: [prefill_slices, decode_slices,
+    decodes, gamma, delta*in_tokens, alpha, beta]."""
+    return torch.stack([
+        p.prefill_slices,
+        p.decode_slices,
+        _tandem_num_decodes(p),
+        p.gamma,
+        p.delta * p.in_tokens,
+        p.alpha,
+        p.beta,
+    ])
+
+
+def _bisect_metric(case: BisectCase, lam: torch.Tensor, solve) -> torch.Tensor:
+    """The case's metric at rates `lam`: `_ttft_itl_at`, `_tandem_ttft_at`
+    or `_tandem_eval`'s ITL, op for op, from the per-lane constants."""
+    c = case.consts
+    if case.metric in (AGG_TTFT, AGG_ITL):
+        wait, serv, _, _ = solve(lam, case.gp)
+        conc = _stage_concurrency(serv, c[0], c[1], c[2])
+        if case.metric == AGG_TTFT:
+            prefill = torch.where(c[5] > 0, c[3] + c[4] * conc, 0.0)
+            return case.wait_margin * wait + prefill
+        return c[6] + c[7] * conc
+    pwait, pserv, _, ptput = solve(lam / c[0], case.gp)
+    if case.metric == TAN_TTFT:
+        pconc = _stage_concurrency(pserv, c[3], c[4], case.gp.nmax)
+        return case.wait_margin * pwait + c[3] + c[4] * pconc
+    # the decode stage sees the prefill stage's departures
+    _, dserv, _, _ = solve(ptput * c[0] / c[1], case.gd)
+    dconc = _stage_concurrency(dserv / c[2], c[5], c[6], case.gd.nmax)
+    return c[5] + c[6] * dconc
+
+
+def _bisect_plain(case: BisectCase, n_iters: int, solve=_solve_stats):
+    """The plain version of the bisection kernel: `_bisect_increasing` with
+    one `solve` a step (two for TAN_ITL). With `solve` the stationary-solve
+    kernel's wrapper it is the per-step composition the kernel replaces."""
+    return _bisect_increasing(
+        case.lam_min, case.lam_max, case.target, case.y_lo, case.y_hi,
+        lambda lam: _bisect_metric(case, lam, solve), n_iters,
+    )
+
+
+def _bisect(case: BisectCase, n_iters: int, use_kernel: bool):
+    """(lam_star, feasible) of one bisection: the bisection kernel
+    (ops.cuda_queueing.bisect, which itself takes the plain version for
+    CPU tensors) or the plain version."""
+    if not use_kernel:
+        return _bisect_plain(case, n_iters)
+    from inferno_tpu_torch.ops import cuda_queueing
+
+    return cuda_queueing.bisect(case, n_iters)
+
+
 def offered_load(total_rate, target_tps, out_tokens, xp=torch):
     """Effective offered load per lane: TPS targets replace the arrival
     rate (reference: pkg/core/allocation.go:133-141). `xp` selects the
@@ -426,6 +526,25 @@ def _operating_point(params, grid, solve, lam_min, total, rate_star):
     )
 
 
+def _agg_bisections(
+    params: FleetParams, grid: _Grid, solve, ttft_tail_margin: float
+) -> tuple[BisectCase, BisectCase]:
+    """The TTFT and ITL bisections of `fleet_size`: the rate range, and the
+    metrics at both its ends (one solve per end)."""
+    one = torch.ones_like(params.alpha)
+    lam_min = _service_rate(params, one) * _RATE_EPSILON
+    lam_max = _service_rate(params, grid.nmax) * (1.0 - _RATE_EPSILON)
+    ttft_lo, itl_lo = _ttft_itl_at(lam_min, params, grid, solve, ttft_tail_margin)
+    ttft_hi, itl_hi = _ttft_itl_at(lam_max, params, grid, solve, ttft_tail_margin)
+    consts = _agg_bisect_consts(params)
+    return (
+        BisectCase(AGG_TTFT, lam_min, lam_max, params.target_ttft, ttft_lo, ttft_hi,
+                   consts, grid, None, ttft_tail_margin),
+        BisectCase(AGG_ITL, lam_min, lam_max, params.target_itl, itl_lo, itl_hi,
+                   consts, grid, None, 1.0),
+    )
+
+
 def fleet_size(
     params: FleetParams,
     k_max: int,
@@ -437,28 +556,14 @@ def fleet_size(
     replica count for the offered load, cost, and the expected per-replica
     operating point (reference: pkg/analyzer/queueanalyzer.go:185-255 +
     pkg/core/allocation.go:126-157). TTFT targets bind at SLO_PERCENTILE
-    via `ttft_tail_margin`. Runs 2 + 2·n_iters + 2 stationary solves."""
+    via `ttft_tail_margin`. Runs 4 stationary solves and 2 bisections of
+    `n_iters` steps (one launch each on the kernels)."""
     solve = _get_solver(use_kernel)
     grid = _make_grid(params, k_max)
-    one = torch.ones_like(params.alpha)
-    mu_1 = _service_rate(params, one)
-    mu_n = _service_rate(params, grid.nmax)
-    lam_min = mu_1 * _RATE_EPSILON
-    lam_max = mu_n * (1.0 - _RATE_EPSILON)
-
-    # metric values at both rate bounds, one solve per bound
-    ttft_lo, itl_lo = _ttft_itl_at(lam_min, params, grid, solve, ttft_tail_margin)
-    ttft_hi, itl_hi = _ttft_itl_at(lam_max, params, grid, solve, ttft_tail_margin)
-
-    lam_ttft, ok_ttft = _bisect_increasing(
-        lam_min, lam_max, params.target_ttft, ttft_lo, ttft_hi,
-        lambda lam: _ttft_itl_at(lam, params, grid, solve, ttft_tail_margin)[0],
-        n_iters,
-    )
-    lam_itl, ok_itl = _bisect_increasing(
-        lam_min, lam_max, params.target_itl, itl_lo, itl_hi,
-        lambda lam: _ttft_itl_at(lam, params, grid, solve)[1], n_iters,
-    )
+    ttft_case, itl_case = _agg_bisections(params, grid, solve, ttft_tail_margin)
+    lam_min, lam_max = ttft_case.lam_min, ttft_case.lam_max
+    lam_ttft, ok_ttft = _bisect(ttft_case, n_iters, use_kernel)
+    lam_itl, ok_itl = _bisect(itl_case, n_iters, use_kernel)
     lam_ttft = torch.where(params.target_ttft > 0, lam_ttft, lam_max)
     ok_ttft = torch.where(params.target_ttft > 0, ok_ttft, True)
     lam_itl = torch.where(params.target_itl > 0, lam_itl, lam_max)
@@ -624,6 +729,25 @@ def _tandem_grids(params: TandemParams, k_max: int):
     return gp, gd, unit_max * _RATE_EPSILON, unit_max * (1.0 - _RATE_EPSILON)
 
 
+def _tandem_bisections(
+    params: TandemParams, gp: _Grid, gd: _Grid, lam_min, lam_max, solve,
+    ttft_tail_margin: float,
+) -> tuple[BisectCase, BisectCase]:
+    """The TTFT and ITL bisections of `tandem_fleet_size`, with the metrics
+    at both ends of the rate range."""
+    _, itl_lo, _, _ = _tandem_eval(lam_min, params, gp, gd, solve)
+    _, itl_hi, _, _ = _tandem_eval(lam_max, params, gp, gd, solve)
+    ttft_lo = _tandem_ttft_at(lam_min, params, gp, solve, ttft_tail_margin)
+    ttft_hi = _tandem_ttft_at(lam_max, params, gp, solve, ttft_tail_margin)
+    consts = _tandem_bisect_consts(params)
+    return (
+        BisectCase(TAN_TTFT, lam_min, lam_max, params.target_ttft, ttft_lo, ttft_hi,
+                   consts, gp, None, ttft_tail_margin),
+        BisectCase(TAN_ITL, lam_min, lam_max, params.target_itl, itl_lo, itl_hi,
+                   consts, gp, gd, 1.0),
+    )
+
+
 def _tandem_operating_point(params, gp, gd, solve, lam_min, rate_star):
     total = offered_load(params.total_rate, params.target_tps, params.out_tokens)
     replicas = fold_replicas(total, rate_star, params.min_replicas)
@@ -643,25 +767,17 @@ def tandem_fleet_size(
 ) -> FleetResult:
     """Size every disaggregated lane: batched equivalent of
     build_disagg_analyzer + DisaggAnalyzer.size + create_allocation's
-    arithmetic. `k_max` must cover both stages' max batch. Runs
-    6 + 3·n_iters + 4 stationary solves."""
+    arithmetic. `k_max` must cover both stages' max batch. Runs 10
+    stationary solves and 2 bisections of `n_iters` steps, the TTFT one a
+    prefill solve a step, the ITL one a prefill and a decode solve (one
+    launch each on the kernels)."""
     solve = _get_solver(use_kernel)
     gp, gd, lam_min, lam_max = _tandem_grids(params, k_max)
-
-    _, itl_lo, _, _ = _tandem_eval(lam_min, params, gp, gd, solve)
-    _, itl_hi, _, _ = _tandem_eval(lam_max, params, gp, gd, solve)
-    ttft_lo = _tandem_ttft_at(lam_min, params, gp, solve, ttft_tail_margin)
-    ttft_hi = _tandem_ttft_at(lam_max, params, gp, solve, ttft_tail_margin)
-
-    lam_ttft, ok_ttft = _bisect_increasing(
-        lam_min, lam_max, params.target_ttft, ttft_lo, ttft_hi,
-        lambda lam: _tandem_ttft_at(lam, params, gp, solve, ttft_tail_margin),
-        n_iters,
+    ttft_case, itl_case = _tandem_bisections(
+        params, gp, gd, lam_min, lam_max, solve, ttft_tail_margin
     )
-    lam_itl, ok_itl = _bisect_increasing(
-        lam_min, lam_max, params.target_itl, itl_lo, itl_hi,
-        lambda lam: _tandem_eval(lam, params, gp, gd, solve)[1], n_iters,
-    )
+    lam_ttft, ok_ttft = _bisect(ttft_case, n_iters, use_kernel)
+    lam_itl, ok_itl = _bisect(itl_case, n_iters, use_kernel)
     lam_ttft = torch.where(params.target_ttft > 0, lam_ttft, lam_max)
     ok_ttft = torch.where(params.target_ttft > 0, ok_ttft, True)
     lam_itl = torch.where(params.target_itl > 0, lam_itl, lam_max)

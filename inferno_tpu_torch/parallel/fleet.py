@@ -11,8 +11,9 @@ scalar path produces (reference: pkg/core/{server.go:55-67,
 allocation.go:27-163}).
 
 Backends: "cuda" (the default) routes every stationary solve through the
-hand-written kernel `ops/csrc/stats_kernel.cu`; "torch" runs the plain
-torch version on whatever device it is given (the CPU tests use it).
+hand-written kernel `ops/csrc/stats_kernel.cu` and every bisection
+through `ops/csrc/bisect_kernel.cu`; "torch" runs their plain torch
+versions on whatever device it is given (the CPU tests use it).
 
 Left out against the reference, each for a later slice of the port: the
 incremental dirty-set cycle (`parallel/incremental.py`), the cycle
@@ -435,7 +436,11 @@ def bucket_slots(
     original lane indices, padded width) per bucket. Lanes are grouped
     into geometric max-batch buckets per kind: per-lane batch varies by
     orders of magnitude across slice shapes, and a single global grid
-    would make every small lane pay for the largest one."""
+    would make every small lane pay for the largest one. Within a bucket
+    lanes run in order of max batch (stable), so that neighbouring lanes
+    share the grid's empty states past their batch, which the kernels
+    skip a warp at a time; every lane's result is independent of its
+    place."""
     slots = []
 
     def add(kind: str, params_np, bucket_batches: np.ndarray):
@@ -445,6 +450,7 @@ def bucket_slots(
             buckets.setdefault(_bucket_k(int(batch)), []).append(i)
         for k_bucket, idx_list in sorted(buckets.items()):
             idx = np.asarray(idx_list)
+            idx = idx[np.argsort(bucket_batches[idx], kind="stable")]
             width = _pad_lanes(len(idx))
             sub = pad_params_rows(cls(*(a[idx] for a in params_np)), width)
             slots.append((kind, k_bucket, sub, idx, width))
@@ -769,9 +775,9 @@ def calculate_fleet(
 ) -> int:
     """Replace System.calculate_all() with the batched fleet path.
 
-    `backend` selects the stationary solve: "cuda" (the hand-written
-    kernel, the default; needs a CUDA device) or "torch" (the plain torch
-    version, on any device). `device=None` is the CUDA card and raises
+    `backend` selects the stationary solve and the bisection: "cuda" (the
+    hand-written kernels, the default; needs a CUDA device) or "torch"
+    (their plain torch versions, on any device). `device=None` is the CUDA card and raises
     when there is none; the CPU is used only when asked for
     (`device="cpu"`, with backend "torch"). Returns the number of live
     lanes sized. Semantics match the scalar path: infeasible lanes

@@ -198,7 +198,8 @@ def test_only_subset_keeps_the_rest():
 
 def test_bucket_launch_plan():
     """Buckets are 4x-geometric in K from 128 and padded like the
-    reference; one launch sequence per bucket."""
+    reference; one launch sequence per bucket; within a bucket the lanes
+    run in order of max batch."""
     system = System(fleet_system_spec(60, **EDGE))
     slots = port_fleet.bucket_slots(build_fleet(system), build_tandem_fleet(system))
     assert {kind for kind, *_ in slots} == {"agg", "tan"}
@@ -206,6 +207,12 @@ def test_bucket_launch_plan():
         assert k in (128, 512, 2048, 8192)
         assert width == port_fleet._pad_lanes(len(idx)) >= len(idx)
         assert len(sub.alpha) == width
+        batch = (sub.max_batch if kind == "agg"
+                 else np.maximum(sub.prefill_batch, sub.decode_batch))[: len(idx)]
+        assert np.all(np.diff(np.asarray(batch)) >= 0)
+    for kind in ("agg", "tan"):
+        idx = np.concatenate([s[3] for s in slots if s[0] == kind])
+        assert np.array_equal(np.sort(idx), np.arange(len(idx)))
     assert [port_fleet._pad_lanes(n) for n in (1, 9, 2048, 2049, 5000)] == [
         8, 16, 2048, 2560, 5120]
 
