@@ -19,7 +19,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    40-variant fleet through the kernels against the port's scalar f64
    analyzer (System.calculate_all), the repo's parity oracle;
 4. main path at full width: a 10,000-variant edge fleet (about 24k lanes)
-   through calculate_fleet(backend="cuda") + solve_unlimited, with both
+   through calculate_fleet(backend="cuda") + solve_unlimited (the first
+   cycle of the incremental path: every lane dirty), with both
    kernels' launch counters checked (4 stationary solves and 2 bisections
    per aggregated bucket, 10 and 2 per tandem bucket), and the decisions
    checked for sanity; then, at every bucket of that path, both kernels
@@ -29,10 +30,37 @@ Phases, in order; any failure raises and the script exits non-zero:
    any bit are counted);
 5. the same fleet on the plain torch versions on the card: identical
    decisions (accelerator exactly, replicas under the ±1 boundary rule);
-6. timings: cold and warm (median of 3, loads perturbed between passes)
-   calculate_fleet + solve_unlimited for both backends;
-7. where the warm pass goes: the bucket solves alone, and the device's
-   busy time in one pass under torch.profiler.
+6. timings of the full path (INCREMENTAL_CYCLE=0, as measured before
+   the incremental cycle was ported): cold and warm (median of 3, loads
+   perturbed between passes) calculate_fleet + solve_unlimited for both
+   backends;
+7. where the warm full pass goes: the bucket solves alone, and the
+   device's busy time in one pass under torch.profiler;
+8. the incremental cycle on the 10k edge fleet, backend "cuda", from a
+   full pass: (a) an unchanged cycle launches nothing and skips every
+   server; (b) 1% of arrival rates moved launches refolds only, one
+   stats_kernel launch per aggregated refold bucket and two per tandem
+   bucket, no bisect_kernel launch; (c) the token mix changed on 20
+   servers runs the full sizing program for those lanes' buckets only;
+   (d) ten cycles mixing (b), (c) and current-allocation changes. After
+   every cycle the decision surface (accelerator, replicas, cost, value,
+   spot replicas) is bit-identical to a full pass of the same inputs on a
+   fresh System (INCREMENTAL_CYCLE=0), the operating point within 1e-4,
+   and no lane's lambda_star or rate_star differs in any bit between the
+   two; the same count is reported for backend "torch";
+9. the event cycle: calculate_fleet(event_dirty=10 names) reproduces the
+   poll cycle's decisions exactly, reading 10 servers;
+10. limited mode and the spot tier at 10k: the capacity bench's fleet at
+   pool budgets of 100%, 80% and 50% of its unlimited solve, and the spot
+   fixture's fleet at 80% with a spot budget of 10% of the pool, each
+   through calculate_fleet + Optimizer.optimize: the vectorized greedy
+   bit-identical to the scalar one (allocations and degradation events),
+   backends "cuda" and "torch" identical when their sizings show no ceil
+   boundary; degradation counts per step printed;
+11. timings of the incremental path on the 100k fleet of the reference's
+   incremental bench (1% λ-dirty steady cycle, median of 5; all-rate-dirty
+   cycle; cold full solve after reset_results; device busy ms of one
+   profiled 1% cycle) and of the 10k limited solve.
 
 It prints a JSON line describing each kernel, then, as its last line,
 {"ok": true, "device": {...}}. It exits non-zero, printing no result,
@@ -340,6 +368,554 @@ def _check_decisions(system):
     return allocated
 
 
+# the incremental phases: launches of each kernel per bucket of a dispatch
+# (a refold bucket runs one operating-point solve, two stages for tandem)
+REFOLD_STATS_LAUNCHES = {"agg": 1, "tan": 2}
+OP_RTOL = 1e-4
+
+
+def _sync():
+    import torch
+
+    torch.cuda.synchronize()
+
+
+def _timed(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    _sync()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+class _SlotSpy:
+    """Records every bucket a dispatch solves (`parallel.fleet.solve_slots`
+    is the one dispatch of both paths) without changing what runs."""
+
+    def __init__(self):
+        from inferno_tpu_torch.parallel import fleet
+
+        self.mod = fleet
+        self.real = fleet.solve_slots
+        self.slots = []
+
+    def __enter__(self):
+        def spy(slots, *args, **kwargs):
+            self.slots.extend(slots)
+            return self.real(slots, *args, **kwargs)
+
+        self.mod.solve_slots = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.solve_slots = self.real
+
+    def plan(self):
+        return [(s.kind, s.k, len(s.idx), s.width, "full" if s.cached is None else "refold")
+                for s in self.slots]
+
+    def expected(self):
+        """(stats_kernel, bisect_kernel) launches the recorded buckets make."""
+        stats = bisect = 0
+        for s in self.slots:
+            if s.cached is None:
+                stats += STATS_LAUNCHES_PER_BUCKET[s.kind]
+                bisect += BISECT_LAUNCHES_PER_BUCKET
+            else:
+                stats += REFOLD_STATS_LAUNCHES[s.kind]
+        return stats, bisect
+
+
+class _StageClock:
+    """Host ms of an incremental cycle's stages, each ending where its
+    result is on the host: the dirty scan (`FleetSnapshot.scan_update` /
+    `scan_event_update`), the gathered solve (`fleet.solve_slots`: params
+    upload, launches, the one result copy) and the unlimited solve's
+    replay (`solve_unlimited`). The rest of a cycle is the bucketing and
+    the writeback."""
+
+    def __init__(self):
+        from inferno_tpu_torch import solver
+        from inferno_tpu_torch.parallel import fleet, snapshot
+
+        self.targets = [(snapshot.FleetSnapshot, "scan_update", "scan"),
+                        (snapshot.FleetSnapshot, "scan_event_update", "scan"),
+                        (fleet, "solve_slots", "solve"),
+                        (solver, "solve_unlimited", "replay")]
+        self.ms = {}
+
+    def __enter__(self):
+        self.saved = []
+        for owner, name, stage in self.targets:
+            real = getattr(owner, name)
+            self.saved.append((owner, name, real))
+
+            def timed(*args, _real=real, _stage=stage, **kwargs):
+                t0 = time.perf_counter()
+                out = _real(*args, **kwargs)
+                _sync()
+                self.ms[_stage] = self.ms.get(_stage, 0.0) + (time.perf_counter() - t0) * 1e3
+                return out
+
+            setattr(owner, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, real in self.saved:
+            setattr(owner, name, real)
+
+
+def _staged_cycle(system, backend, **kw):
+    """`_cycle` with its stages timed: (spy, counts, ms, {stage: ms})."""
+    with _StageClock() as clock:
+        spy, counts, ms = _cycle(system, backend, **kw)
+    stages = dict(clock.ms)
+    stages["rest"] = ms - sum(stages.values())
+    return spy, counts, ms, stages
+
+
+def _cycle(system, backend, **kw):
+    """One counted incremental cycle: calculate_fleet + solve_unlimited with
+    both kernels' counters zeroed just before and read just after, and the
+    buckets it dispatched."""
+    from inferno_tpu_torch.ops import cuda_queueing
+    from inferno_tpu_torch.parallel import calculate_fleet
+    from inferno_tpu_torch.solver import solve_unlimited
+
+    cuda_queueing.LAUNCHES = 0
+    cuda_queueing.BISECT_LAUNCHES = 0
+    with _SlotSpy() as spy:
+        _, ms = _timed(lambda: (calculate_fleet(system, backend=backend, **kw),
+                                solve_unlimited(system)))
+    return spy, (cuda_queueing.LAUNCHES, cuda_queueing.BISECT_LAUNCHES), ms
+
+
+def _decisions(system):
+    out = {}
+    for name, server in system.servers.items():
+        a = server.allocation
+        out[name] = None if a is None else (
+            a.accelerator, a.num_replicas, a.cost, a.value, a.spot_replicas,
+            a.itl, a.ttft, a.rho,
+        )
+    return out
+
+
+def _full_pass(src, spec, backend):
+    """The full path (INCREMENTAL_CYCLE=0 and the legacy lane walk,
+    FLEET_SNAPSHOT=0, so the incremental state and snapshot stay
+    untouched) on a fresh System of the same inputs: loads are shared with
+    the spec, current allocations copied from `src`."""
+    from inferno_tpu_torch.core.system import System
+    from inferno_tpu_torch.parallel import calculate_fleet
+    from inferno_tpu_torch.solver import solve_unlimited
+
+    prior = {k: os.environ.get(k) for k in ("INCREMENTAL_CYCLE", "FLEET_SNAPSHOT")}
+    os.environ.update(INCREMENTAL_CYCLE="0", FLEET_SNAPSHOT="0")
+    try:
+        ref = System(spec)
+        for r, s_ in zip(ref.servers.values(), src.servers.values()):
+            cur = s_.cur_allocation
+            r.cur_allocation.accelerator = cur.accelerator
+            r.cur_allocation.num_replicas = cur.num_replicas
+            r.cur_allocation.cost = cur.cost
+        calculate_fleet(ref, backend=backend)
+        solve_unlimited(ref)
+        return ref
+    finally:
+        for key, val in prior.items():
+            if val is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = val
+
+
+def _lane_bit_diffs(full):
+    """Lanes whose lambda_star or rate_star differ in any bit between the
+    incremental state's tables and the full pass just made (its plans and
+    results are the solve memo's), matched by (server, accelerator)."""
+    import numpy as np
+
+    from inferno_tpu_torch.parallel import fleet, incremental
+
+    memo = fleet._solve_memo["last"]
+    want = {}
+    for plan, res in ((memo["plan"], memo["results"][0]), (memo["tandem"], memo["results"][1])):
+        if plan is None:
+            continue
+        lam = np.asarray(res.lambda_star, np.float32).view(np.int32)
+        rate = np.asarray(res.rate_star, np.float32).view(np.int32)
+        for i, key in enumerate(plan.lanes):
+            want[key] = (int(lam[i]), int(rate[i]))
+    st = incremental._state
+    snap = fleet._get_snapshot()
+    got = {}
+    for kind in ("agg", "tan"):
+        kt, t = snap.kind_table(kind), st.kinds[kind]
+        if kt.mask is None or not len(kt.mask):
+            continue
+        rows = np.flatnonzero(kt.mask & t.valid)
+        lam = t.res.lambda_star[rows].view(np.int32)
+        rate = t.res.rate_star[rows].view(np.int32)
+        for j, r in enumerate(rows):
+            got[kt.lanes[r]] = (int(lam[j]), int(rate[j]))
+    if set(got) != set(want):
+        raise AssertionError("incremental and full passes size different lane sets")
+    return sum(got[k] != want[k] for k in want), len(want)
+
+
+def _compare_to_full(system, spec, backend, label, strict=True):
+    """The incremental cycle just run against a full pass of the same
+    inputs: (decision mismatches, worst operating-point rel error, lanes
+    differing in a bit, lanes). Raises on any difference when `strict`."""
+    full = _full_pass(system, spec, backend)
+    bits, lanes = _lane_bit_diffs(full)
+    got, want = _decisions(system), _decisions(full)
+    mismatch = 0
+    worst = 0.0
+    for name, w in want.items():
+        g = got[name]
+        if (g is None) != (w is None) or (w is not None and g[:5] != w[:5]):
+            mismatch += 1
+            continue
+        if w is None:
+            continue
+        for gv, wv in zip(g[5:], w[5:]):
+            worst = max(worst, abs(gv - wv) / max(abs(wv), 1e-6))
+    print(f"  {label}: vs a full pass on a fresh System: {mismatch} decisions differ, "
+          f"operating point max rel {worst:.3g}, {bits} of {lanes} lanes' "
+          f"lambda_star/rate_star differ in a bit")
+    if strict and (mismatch or bits or worst > OP_RTOL):
+        raise AssertionError(f"{label}: incremental cycle differs from the full pass")
+    return mismatch, worst, bits, lanes
+
+
+def _move_rates(system, rng, fraction):
+    """Scale the arrival rate of `fraction` of the loaded servers."""
+    loaded = [s for s in system.servers.values() if s.load is not None and s.load.arrival_rate > 0]
+    picks = rng.choice(len(loaded), max(int(len(system.servers) * fraction), 1), replace=False)
+    for i in picks:
+        loaded[i].load.arrival_rate *= float(rng.uniform(0.6, 1.7))
+    return [loaded[i].name for i in picks]
+
+
+def _move_token_mix(system, rng, n):
+    """Change the token mix of n loaded servers. The load is edited in place
+    (it is shared with the spec, so the full pass sees it) and the server
+    object is replaced by a copy, as a controller's fresh objects are: the
+    identity-witness scan of a fleet this size re-reads replaced servers."""
+    import copy
+
+    loaded = [name for name, s in system.servers.items()
+              if s.load is not None and s.load.arrival_rate > 0]
+    names = [loaded[i] for i in rng.choice(len(loaded), n, replace=False)]
+    for name in names:
+        load = system.servers[name].load
+        load.avg_in_tokens = float(rng.integers(16, 600))
+        load.avg_out_tokens = float(rng.integers(8, 400))
+        system.servers[name] = copy.copy(system.servers[name])
+    return names
+
+
+def _move_current(system, rng, n):
+    """Replace the current allocation of n servers (a fresh object with new
+    replicas and cost, as a controller reads it back)."""
+    names = list(system.servers)
+    for i in rng.choice(len(names), n, replace=False):
+        server = system.servers[names[i]]
+        cur = server.cur_allocation.clone()
+        cur.num_replicas = int(rng.integers(0, 6))
+        cur.cost = float(rng.uniform(0, 200))
+        server.cur_allocation = cur
+
+
+def _check_launches(label, spy, counts, refold_only=None):
+    expected = spy.expected()
+    kinds = {p[4] for p in spy.plan()}
+    print(f"  {label}: dispatch (kind, K, lanes, padded, program) {spy.plan()}")
+    print(f"  {label}: stats_kernel launches {counts[0]}, bisect_kernel {counts[1]}; "
+          f"expected {expected[0]} and {expected[1]}")
+    if tuple(counts) != expected:
+        raise AssertionError(f"{label}: launches {counts} != expected {expected}")
+    if refold_only is not None and kinds - ({"refold"} if refold_only else {"full"}):
+        raise AssertionError(f"{label}: dispatched {kinds}")
+
+
+def _phase8(spec):
+    """8. the incremental cycle on the 10k edge fleet, backend cuda."""
+    import numpy as np
+
+    from inferno_tpu_torch.core.system import System
+    from inferno_tpu_torch.ops import cuda_queueing
+    from inferno_tpu_torch.parallel import reset_fleet_state
+
+    reset_fleet_state()
+    system = System(spec)
+    rng = np.random.default_rng(8)
+    total = [0, 0]
+
+    def run(label, **kw):
+        spy, counts, ms = _cycle(system, "cuda", **kw)
+        total[0] += counts[0]
+        total[1] += counts[1]
+        fd = system.fleet_dirty
+        print(f"  {label}: {ms:.1f} ms, {len(fd.dirty_pos)} dirty servers, {fd.dirty_lanes} "
+              f"lanes solved ({fd.refold_lanes} refolded), {fd.skipped_servers} skipped, "
+              f"{fd.scanned_servers} scanned")
+        return spy, counts
+
+    print("8. incremental cycle, 10k edge fleet, backend cuda")
+    spy, counts = run("full pass")
+    _check_launches("full pass", spy, counts, refold_only=False)
+    _compare_to_full(system, spec, "cuda", "full pass")
+
+    spy, counts = run("(a) unchanged")
+    if counts != (0, 0) or system.fleet_dirty.skipped_servers != len(system.servers):
+        raise AssertionError("(a): an unchanged cycle launched a kernel or re-solved a server")
+    _compare_to_full(system, spec, "cuda", "(a) unchanged")
+
+    _move_rates(system, rng, 0.01)
+    spy, counts = run("(b) 1% of rates moved")
+    _check_launches("(b)", spy, counts, refold_only=True)
+    if counts[1]:
+        raise AssertionError("(b): a λ-only cycle ran a bisection")
+    _compare_to_full(system, spec, "cuda", "(b) 1% of rates moved")
+
+    moved = _move_token_mix(system, rng, 20)
+    spy, counts = run("(c) token mix of 20 servers")
+    _check_launches("(c)", spy, counts, refold_only=False)
+    dirty = {list(system.servers)[p] for p in system.fleet_dirty.dirty_pos.tolist()}
+    if dirty != set(moved):
+        raise AssertionError(f"(c): dirty servers {sorted(dirty)} != moved {sorted(moved)}")
+    _compare_to_full(system, spec, "cuda", "(c) token mix of 20 servers")
+
+    for i in range(10):
+        _move_rates(system, rng, 0.01)
+        if i % 2 == 0:
+            _move_token_mix(system, rng, 5)
+        _move_current(system, rng, 20)
+        spy, counts = run(f"(d) mixed cycle {i}")
+        _check_launches(f"(d) mixed cycle {i}", spy, counts)
+        _compare_to_full(system, spec, "cuda", f"(d) mixed cycle {i}")
+    print(f"phase 8 (cuda): stats_kernel launches {total[0]}, bisect_kernel {total[1]}")
+    if not (total[0] and total[1]):
+        raise AssertionError("phase 8 did not launch both kernels")
+    cuda_queueing.LAUNCHES = cuda_queueing.BISECT_LAUNCHES = 0
+
+    # backend torch on the card: torch's own reductions may split a row by
+    # tensor shape, so lanes that differ are reported, not required to be 0
+    reset_fleet_state()
+    tsys = System(spec)
+    trng = np.random.default_rng(80)
+    report = []
+    for label, mover in (("full pass", None),
+                         ("(b)", lambda: _move_rates(tsys, trng, 0.01)),
+                         ("(c)", lambda: _move_token_mix(tsys, trng, 20))):
+        if mover is not None:
+            mover()
+        if _cycle(tsys, "torch")[1] != (0, 0):
+            raise AssertionError("backend 'torch' launched a kernel")
+        report.append(_compare_to_full(tsys, spec, "torch", f"torch {label}", strict=False))
+    print(f"phase 8 (torch on the card): {sum(r[2] for r in report)} lane bit differences, "
+          f"{sum(r[0] for r in report)} decision differences over {len(report)} cycles (reported)")
+    return total
+
+
+def _phase9(spec_fn):
+    """9. the event cycle reproduces the poll cycle's decisions exactly."""
+    import numpy as np
+
+    from inferno_tpu_torch.core.system import System
+    from inferno_tpu_torch.parallel import reset_fleet_state
+
+    def run(events):
+        reset_fleet_state()
+        system = System(spec_fn())
+        _cycle(system, "cuda")
+        names = [n for n, s in system.servers.items() if s.load.arrival_rate > 0]
+        rng = np.random.default_rng(9)
+        moved = [names[i] for i in rng.choice(len(names), 10, replace=False)]
+        for name in moved:
+            system.servers[name].load.arrival_rate *= float(rng.uniform(1.2, 1.6))
+        spy, counts, ms = _cycle(system, "cuda", event_dirty=moved if events else None)
+        fd = system.fleet_dirty
+        print(f"  {'event' if events else 'poll'} cycle: {ms:.1f} ms, scanned_servers "
+              f"{fd.scanned_servers}, dirty {len(fd.dirty_pos)}, launches {counts}")
+        return _decisions(system), fd.scanned_servers, set(moved)
+
+    print("9. event cycle vs poll cycle, 10k edge fleet, backend cuda")
+    ev, ev_scanned, moved = run(True)
+    poll, poll_scanned, _ = run(False)
+    if ev_scanned != len(moved) or poll_scanned != len(poll):
+        raise AssertionError(f"scanned {ev_scanned} / {poll_scanned} servers")
+    if ev != poll:
+        raise AssertionError("event cycle differs from the poll cycle")
+    print(f"event ≡ poll: identical decisions on {len(poll)} servers; scanned_servers "
+          f"{ev_scanned} (event) vs {poll_scanned} (poll)")
+
+
+def _candidate_boundary(a, b):
+    """Candidate sets of two sized Systems under the round's rule; returns
+    the number of ±1 ceil-boundary candidates (rate_star within 1e-4)."""
+    boundary = 0
+    for name, sa in a.servers.items():
+        ca, cb = sa.all_allocations, b.servers[name].all_allocations
+        if set(ca) != set(cb):
+            raise AssertionError(f"{name}: candidate sets differ")
+        for acc in ca:
+            x, y = ca[acc], cb[acc]
+            if (x.num_replicas, x.spot_replicas) != (y.num_replicas, y.spot_replicas):
+                rx, ry = x.max_arrv_rate_per_replica, y.max_arrv_rate_per_replica
+                if abs(rx - ry) > 1e-4 * max(abs(rx), abs(ry)):
+                    raise AssertionError(f"{name}/{acc}: {x} vs {y}")
+                boundary += 1
+    return boundary
+
+
+def _limited_surface(system):
+    import dataclasses
+
+    alloc = {n: None if s.allocation is None else (
+        s.allocation.accelerator, s.allocation.num_replicas, s.allocation.batch_size,
+        s.allocation.cost, s.allocation.value, s.allocation.spot_replicas,
+        s.allocation.spot_discount) for n, s in system.servers.items()}
+    events = {k: dataclasses.asdict(v) for k, v in system.degradations.items()}
+    return alloc, events
+
+
+def _limited_case(label, spec):
+    """One limited-mode fleet: vectorized (cuda) ≡ scalar bit for bit,
+    cuda ≡ torch; returns the vectorized solve's host ms."""
+    from collections import Counter
+
+    from inferno_tpu_torch.core.system import System
+    from inferno_tpu_torch.parallel import calculate_fleet, reset_fleet_state
+    from inferno_tpu_torch.solver import Optimizer
+    from inferno_tpu_torch.solver.greedy import solve_greedy
+
+    def sized(backend):
+        reset_fleet_state()
+        system = System(spec)
+        calculate_fleet(system, backend=backend)
+        return system
+
+    reset_fleet_state()
+    vec = System(spec)
+    _, size_ms = _timed(lambda: calculate_fleet(vec, backend="cuda"))
+    _, solve_ms = _timed(lambda: Optimizer(spec.optimizer).optimize(vec, calculate=False))
+    ms = size_ms + solve_ms
+    if vec.fleet_candidates is None or not vec.fleet_candidates.num_rows:
+        raise AssertionError(f"{label}: the vectorized solve did not use its candidate table")
+    scalar = sized("cuda")
+    solve_greedy(scalar, spec.optimizer)
+    if _limited_surface(vec) != _limited_surface(scalar):
+        raise AssertionError(f"{label}: vectorized and scalar greedy differ")
+    torch_sys = sized("torch")
+    Optimizer(spec.optimizer).optimize(torch_sys, calculate=False)
+    boundary = _candidate_boundary(vec, torch_sys)
+    same = _limited_surface(vec) == _limited_surface(torch_sys)
+    if boundary == 0 and not same:
+        raise AssertionError(f"{label}: cuda and torch decisions differ with no boundary lane")
+    steps = Counter(e.step for e in vec.degradations.values())
+    allocated = sum(1 for s in vec.servers.values() if s.allocation is not None)
+    spot = sum(s.allocation.spot_replicas for s in vec.servers.values() if s.allocation)
+    print(f"  {label}: {ms:.1f} ms (calculate_fleet {size_ms:.1f} + optimize {solve_ms:.1f}, "
+          f"cuda, a fresh state); vec ≡ scalar bit for "
+          f"bit; cuda vs torch: {boundary} boundary candidates, decisions "
+          f"{'identical' if same else 'differ (boundary cascade)'}; {allocated} allocated, "
+          f"{spot} spot replicas; degradations {dict(sorted(steps.items()))}")
+    return ms
+
+
+def _phase10():
+    """10. limited mode and the spot tier at 10k."""
+    import dataclasses
+
+    from inferno_tpu_torch.config.types import CapacitySpec, OptimizerSpec, SpotPoolSpec
+    from inferno_tpu_torch.testing.fleet import fleet_capacity, fleet_system_spec
+
+    print("10. limited mode and spot, 10k")
+    spec = fleet_system_spec(10000, shapes_per_variant=2, priority_classes=3, split_pools=True)
+    cap = fleet_capacity(spec, 1.0, backend="cuda")
+    times = {}
+    for fraction in (1.0, 0.8, 0.5):
+        spec.capacity = CapacitySpec(chips={p: int(c * fraction) for p, c in cap.items()})
+        spec.optimizer = OptimizerSpec(unlimited=False)
+        times[fraction] = _limited_case(f"capacity fleet at {fraction:.0%}", spec)
+    # the spot fixture's fleet: every shape in the v5e pool, the cheap
+    # hazard (risk premium below the discount) with 10% of the pool as spot
+    spot = fleet_system_spec(10000, shapes_per_variant=3, priority_classes=3)
+    spot_cap = fleet_capacity(spot, 0.8, backend="cuda")
+    tier = SpotPoolSpec(discount=0.5, hazard_per_hr=0.001, blast_radius=0.5, recovery_s=180.0,
+                        chips=int(0.1 * spot_cap["v5e"]))
+    spot.capacity = CapacitySpec(chips=spot_cap, spot={"v5e": tier})
+    spot.optimizer = OptimizerSpec(unlimited=False)
+    _limited_case(f"spot fleet at 80%, spot budget {tier.chips} chips", spot)
+    print(f"  spot tier: {dataclasses.asdict(tier)}")
+    return times
+
+
+def _phase11(smi, limited_ms):
+    """11. timings of the incremental path, 100k variants, backend cuda."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from inferno_tpu_torch.core.system import System
+    from inferno_tpu_torch.parallel import incremental, reset_fleet_state
+    from inferno_tpu_torch.testing.fleet import fleet_system_spec, perturb_loads
+
+    print(f"11. timings, 100k fleet of the incremental bench, backend cuda, on {smi}")
+    reset_fleet_state()
+    system = System(fleet_system_spec(100000, shapes_per_variant=1))
+    _, counts, first_ms = _cycle(system, "cuda")
+    rng = np.random.default_rng(11)
+    steady = []
+    for _ in range(6):
+        _move_rates(system, rng, 0.01)
+        steady.append(_staged_cycle(system, "cuda"))
+    steady = steady[1:]  # the first 1% cycle meets new refold bucket shapes
+    perturb_loads(system)
+    _, all_counts, all_ms, all_stages = _staged_cycle(system, "cuda")
+    incremental.reset_results()
+    _, cold_counts, cold_ms, cold_stages = _staged_cycle(system, "cuda")
+    _move_rates(system, rng, 0.01)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, prof_counts, prof_ms = _cycle(system, "cuda")
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3
+    lanes = system.fleet_dirty.dirty_lanes
+
+    def split(stages):
+        return ", ".join(f"{k} {stages.get(k, 0.0):.1f}" for k in ("scan", "solve", "replay", "rest"))
+
+    times = [c[2] for c in steady]
+    med = sorted(steady, key=lambda c: c[2])[len(steady) // 2]
+    print(f"  first pass (snapshot, state and every lane): {first_ms:.1f} ms")
+    print(f"  steady 1% λ-dirty cycle: median {statistics.median(times):.1f} ms of 5 "
+          f"({', '.join(f'{t:.1f}' for t in times)}); launches {med[1]}; stages of the "
+          f"median cycle (ms): {split(med[3])}")
+    print(f"  all-rate-dirty cycle: {all_ms:.1f} ms; launches {all_counts}; stages (ms): "
+          f"{split(all_stages)}")
+    print(f"  cold full solve after reset_results: {cold_ms:.1f} ms; launches {cold_counts}; "
+          f"stages (ms): {split(cold_stages)}")
+    print(f"  profiled 1% cycle: {prof_ms:.1f} ms on the host clock, device busy {busy:.2f} ms "
+          f"({100.0 * busy / prof_ms:.1f}%), {lanes} lanes, launches {prof_counts}")
+    print(f"  10k limited solve (capacity fleet at 80%, calculate_fleet + optimize): "
+          f"{limited_ms:.1f} ms")
+
+
+def _incremental_phases(smi):
+    from inferno_tpu_torch.testing.fleet import fleet_system_spec
+
+    def edge():
+        return fleet_system_spec(10000, **FLEET_KW)
+
+    _phase8(edge())
+    _phase9(edge)
+    times = _phase10()
+    _phase11(smi, times[0.8])
+
+
 def main() -> int:
     import torch
 
@@ -468,7 +1044,7 @@ def main() -> int:
     max_abs = 0.0
     bucket_tally = _LamTally()
     bit_diff = bit_lanes = 0
-    for kind, k, sub, idx, width in slots:
+    for kind, k, sub, idx, width, _ in slots:
         lam, grid = _bucket_case(kind, k, sub, dev)
         got = cuda_queueing.solve_stats(lam, grid)
         rel, ab = _stat_errors(q._solve_stats(lam, grid), got)
@@ -530,7 +1106,9 @@ def main() -> int:
     boundary = assert_same_decisions(system, plain)
     print(f"cuda vs torch backend: decisions identical ({boundary} ±1 boundary lanes)")
 
-    # 6. timings: warm passes, loads perturbed before each, backends in turns
+    # 6. timings of the full path: warm passes, loads perturbed before each,
+    # backends in turns
+    os.environ["INCREMENTAL_CYCLE"] = "0"
     warm = {"cuda": [], "torch": []}
     for rep in range(3):
         order = ("cuda", "torch") if rep % 2 == 0 else ("torch", "cuda")
@@ -563,6 +1141,10 @@ def main() -> int:
         print(f"warm pass, backend {backend}: bucket solves {statistics.median(solves):.1f} ms "
               f"of {med:.1f} ms; device busy {busy:.1f} ms in a profiled pass "
               f"({100.0 * busy / med:.1f}% of the warm median)")
+    del os.environ["INCREMENTAL_CYCLE"]
+
+    # 8.-11. the incremental cycle, the event cycle, limited mode and spot
+    _incremental_phases(smi)
 
     replaces = "inferno_tpu/ops/pallas_queueing.py:84"
     print(json.dumps({"kernels": [

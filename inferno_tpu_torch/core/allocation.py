@@ -12,8 +12,7 @@ Unlike the reference there is no global singleton system: sizing takes the
 `System` explicitly, so concurrent optimization cycles are safe.
 
 Port copy of `inferno_tpu/core/allocation.py`, verbatim apart from its
-imports and `_apply_spot`, which raises on a spot tier until the spot
-market is ported.
+imports.
 """
 
 from __future__ import annotations
@@ -217,15 +216,13 @@ def create_allocation(system: "System", server_name: str, acc_name: str) -> Allo
 
 
 def _apply_spot(system, alloc, cost_per_replica, required) -> None:
-    """No-op without a spot tier. The spot market (the reference's
-    spot/market.py) is not ported yet, so a System that configures a
-    tier raises instead of silently sizing it as reserved capacity."""
+    """Local-import shim for spot.market.apply_spot (the spot package
+    imports config only; this keeps core <-> spot acyclic)."""
     if not getattr(system, "spot", None):
         return
-    raise NotImplementedError(
-        "spot tiers are not ported yet (inferno_tpu/spot/market.py is a "
-        "later slice of the port)"
-    )
+    from inferno_tpu_torch.spot.market import apply_spot
+
+    apply_spot(system, alloc, cost_per_replica, required)
 
 
 def _zero_load_allocation(server, model, acc, perf) -> Allocation:

@@ -158,8 +158,13 @@ def _make_stage_grid(
     valid = k <= nmax[:, None]
     log_mu = torch.where(valid, log_mu, math.inf)  # +inf => p[k] = 0 beyond nmax
     kk = torch.arange(0, k_max + 1, dtype=_F32, device=dev)[None, :]
+    # each lane's running sum in one order whatever the bucket's width: on
+    # CUDA, torch's scan along the last dim picks its thread layout by the
+    # number of rows, which re-associates a row's sum; a scan along the
+    # first dim walks each column in order (on the CPU both dims walk a
+    # row in order, so the CPU result is unchanged)
     return _Grid(
-        cml=torch.cumsum(log_mu, dim=1),
+        cml=torch.cumsum(log_mu.T, dim=0).T.contiguous(),
         kk=kk,
         nmax=nmax,
         log_mu_full=torch.log(nmax) - torch.log(base + slope * nmax),

@@ -1,7 +1,7 @@
 """Fleet-level candidate sizing on the GPU.
 
-Port of `inferno_tpu/parallel/fleet.py`, the full-solve path.
-`calculate_fleet(system)` is a drop-in replacement for
+Port of `inferno_tpu/parallel/fleet.py`: the per-cycle solve, full and
+incremental. `calculate_fleet(system)` is a drop-in replacement for
 `System.calculate_all()`: it flattens every loaded (server, slice-shape)
 pair into one `FleetParams` batch (the columnar snapshot), sizes it
 bucket by bucket with the sizing programs of `ops.queueing` on one
@@ -13,19 +13,20 @@ allocation.go:27-163}).
 Backends: "cuda" (the default) routes every stationary solve through the
 hand-written kernel `ops/csrc/stats_kernel.cu` and every bisection
 through `ops/csrc/bisect_kernel.cu`; "torch" runs their plain torch
-versions on whatever device it is given (the CPU tests use it).
+versions on whatever device it is given (the CPU tests use it). Both
+backends take the incremental dirty-set cycle (`parallel/incremental.py`)
+by default, and both paths dispatch through one function, `solve_slots`.
 
 Left out against the reference, each for a later slice of the port: the
-incremental dirty-set cycle (`parallel/incremental.py`), the cycle
-profiler's counters (`obs/profiler.py`), sharding lanes over several
-devices (`shard_map`), the native C++ backend, the spot tier (a System
-with one raises NotImplementedError), and the planner's batched
-time-axis solve (`prepare_fleet_batch`/`calculate_fleet_batch`).
+cycle profiler's counters (`obs/profiler.py`), sharding lanes over
+several devices (`shard_map`), the native C++ backend, and the planner's
+batched time-axis solve (`prepare_fleet_batch`/`calculate_fleet_batch`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -48,10 +49,14 @@ from inferno_tpu_torch.ops.queueing import (
     FleetResult,
     TandemParams,
     fleet_params_from_numpy,
+    fleet_refold,
     fleet_size,
+    fold_replicas,
+    offered_load,
     pack_result,
     tandem_fleet_size,
     tandem_params_from_numpy,
+    tandem_refold,
     unpack_result,
 )
 from inferno_tpu_torch.parallel.mesh import fleet_device
@@ -248,12 +253,16 @@ def _snapshot_plan(
 
 
 def reset_fleet_state() -> None:
-    """Drop every cross-cycle cache (plan memo, solve memo, snapshot) —
-    test isolation hook."""
+    """Drop every cross-cycle cache (plan memo, solve memo, snapshot,
+    incremental result tables, greedy charge state) — test isolation
+    hook."""
     _plan_memo.clear()
     _solve_memo.clear()
     if _snapshot is not None:
         _snapshot.reset()
+    from inferno_tpu_torch.parallel import incremental as _inc
+
+    _inc.reset_state()
 
 
 def build_fleet(
@@ -388,17 +397,19 @@ def _bucket_k(batch: int) -> int:
     return k
 
 
+def _pad_rows(arr: np.ndarray, width: int) -> np.ndarray:
+    pad = width - len(arr)
+    if pad <= 0:
+        return arr
+    return np.concatenate([arr, np.repeat(arr[:1], pad, axis=0)])
+
+
 def pad_params_rows(params, total: int):
     """Pad every array of a params tuple to `total` rows by repeating row
     0 (dummy lanes) — the reference's one padding rule."""
-    n = len(np.asarray(params[0]))
-    pad = total - n
-    if pad <= 0:
+    if len(np.asarray(params[0])) >= total:
         return params
-    return type(params)(
-        *(np.concatenate([np.asarray(a), np.repeat(np.asarray(a)[:1], pad, axis=0)])
-          for a in params)
-    )
+    return type(params)(*(_pad_rows(np.asarray(a), total) for a in params))
 
 
 def _pad_lanes(n: int) -> int:
@@ -429,38 +440,115 @@ def _empty_result(n: int) -> FleetResult:
     )
 
 
+class BucketSlot(NamedTuple):
+    """One bucket of a solve, in launch order: the lane kind ("agg" or
+    "tan"), its grid width K, its host params padded to `width` rows,
+    the lane indices it holds (into the caller's lane space: plan lanes
+    on the full path, static snapshot rows on the incremental one), and
+    for a refold bucket the cached rate-independent columns
+    (lambda_star f32, rate_star f32, feasible bool), padded alike; None
+    runs the full sizing program."""
+
+    kind: str
+    k: int
+    sub: object
+    idx: np.ndarray
+    width: int
+    cached: tuple | None = None
+
+
+def add_bucketed(
+    slots: list, kind: str, params_np, bucket_batches: np.ndarray,
+    idx_map: np.ndarray | None = None, cached: tuple | None = None,
+) -> None:
+    """Append the buckets of one lane set to `slots` — the one bucketing
+    rule of both paths. Lanes are grouped into geometric max-batch
+    buckets: per-lane batch varies by orders of magnitude across slice
+    shapes, and a single global grid would make every small lane pay for
+    the largest one. Within a bucket lanes run in order of max batch
+    (stable), so that neighbouring lanes share the grid's empty states
+    past their batch, which the kernels skip a warp at a time; every
+    lane's result is independent of its place and of its neighbours.
+    `idx_map` maps the lane set's positions to the indices a slot
+    reports (identity when None); `cached` are the refold columns of the
+    lane set, gathered per bucket. Padding rows repeat row 0."""
+    cls = type(params_np)
+    bucket_batches = np.asarray(bucket_batches)
+    buckets: dict[int, list[int]] = {}
+    for i, batch in enumerate(bucket_batches):
+        buckets.setdefault(_bucket_k(int(batch)), []).append(i)
+    for k_bucket, idx_list in sorted(buckets.items()):
+        idx = np.asarray(idx_list)
+        idx = idx[np.argsort(bucket_batches[idx], kind="stable")]
+        width = _pad_lanes(len(idx))
+        sub = pad_params_rows(cls(*(np.asarray(a)[idx] for a in params_np)), width)
+        aux = None
+        if cached is not None:
+            aux = tuple(_pad_rows(np.asarray(c)[idx], width) for c in cached)
+        out_idx = idx if idx_map is None else idx_map[idx]
+        slots.append(BucketSlot(kind, k_bucket, sub, out_idx, width, aux))
+
+
 def bucket_slots(
     plan: FleetPlan | None, tandem: TandemPlan | None
-) -> list[tuple[str, int, object, np.ndarray, int]]:
-    """The solve's buckets, in launch order: (kind, K, padded host params,
-    original lane indices, padded width) per bucket. Lanes are grouped
-    into geometric max-batch buckets per kind: per-lane batch varies by
-    orders of magnitude across slice shapes, and a single global grid
-    would make every small lane pay for the largest one. Within a bucket
-    lanes run in order of max batch (stable), so that neighbouring lanes
-    share the grid's empty states past their batch, which the kernels
-    skip a warp at a time; every lane's result is independent of its
-    place."""
-    slots = []
-
-    def add(kind: str, params_np, bucket_batches: np.ndarray):
-        cls = type(params_np)
-        buckets: dict[int, list[int]] = {}
-        for i, batch in enumerate(bucket_batches):
-            buckets.setdefault(_bucket_k(int(batch)), []).append(i)
-        for k_bucket, idx_list in sorted(buckets.items()):
-            idx = np.asarray(idx_list)
-            idx = idx[np.argsort(bucket_batches[idx], kind="stable")]
-            width = _pad_lanes(len(idx))
-            sub = pad_params_rows(cls(*(a[idx] for a in params_np)), width)
-            slots.append((kind, k_bucket, sub, idx, width))
-
+) -> list[BucketSlot]:
+    """The full path's buckets, in launch order (see `add_bucketed`)."""
+    slots: list[BucketSlot] = []
     if plan is not None and plan.num_lanes:
-        add("agg", plan.params, np.asarray(plan.params.max_batch))
+        add_bucketed(slots, "agg", plan.params, np.asarray(plan.params.max_batch))
     if tandem is not None and tandem.num_lanes:
         tp = tandem.params
-        add("tan", tp, np.maximum(np.asarray(tp.prefill_batch), np.asarray(tp.decode_batch)))
+        add_bucketed(
+            slots, "tan", tp,
+            np.maximum(np.asarray(tp.prefill_batch), np.asarray(tp.decode_batch)),
+        )
     return slots
+
+
+def _solve_slot(slot: BucketSlot, device: torch.device, n_iters: int, use_kernel: bool):
+    agg = slot.kind == "agg"
+    params = (fleet_params_from_numpy if agg else tandem_params_from_numpy)(
+        slot.sub, device
+    )
+    if slot.cached is None:
+        sizer = fleet_size if agg else tandem_fleet_size
+        return sizer(params, slot.k, n_iters, use_kernel)
+    lam, rate, feasible = (
+        torch.as_tensor(np.ascontiguousarray(c), device=device) for c in slot.cached
+    )
+    refold = fleet_refold if agg else tandem_refold
+    return refold(params, slot.k, lam, rate, feasible.to(torch.bool), use_kernel)
+
+
+def solve_slots(
+    slots: list[BucketSlot], device: torch.device, n_iters: int, use_kernel: bool
+) -> np.ndarray:
+    """Solve every bucket on `device`: a full bucket runs the sizing
+    program (`fleet_size`/`tandem_fleet_size`), a refold bucket the
+    rate-dependent half (`fleet_refold`/`tandem_refold`) on its cached
+    columns. Each bucket writes its packed [8, width] result into one
+    preallocated [8, total] device tensor; one `.cpu()` copy then brings
+    every bucket back (the reference's single device round trip of
+    `_jitted_multi`). Returns that host array, buckets in slot order."""
+    packed = torch.empty(
+        (8, sum(s.width for s in slots)), dtype=torch.float32, device=device
+    )
+    offset = 0
+    for slot in slots:
+        res = _solve_slot(slot, device, n_iters, use_kernel)
+        pack_result(res, out=packed[:, offset : offset + slot.width])
+        offset += slot.width
+    return packed.cpu().numpy()
+
+
+def iter_slot_results(slots: list[BucketSlot], packed_all: np.ndarray):
+    """(slot, FleetResult of its real lanes) per bucket of a solve."""
+    offset = 0
+    for slot in slots:
+        res = unpack_result(packed_all[:, offset : offset + slot.width])
+        offset += slot.width
+        n = len(slot.idx)
+        yield slot, FleetResult(*(np.asarray(f)[:n] for f in res))
 
 
 def _solve_all(
@@ -470,12 +558,8 @@ def _solve_all(
     n_iters: int,
     use_kernel: bool,
 ) -> tuple[FleetResult | None, FleetResult | None]:
-    """Solve aggregated and tandem lanes, bucket by bucket, on `device`.
-
-    Each bucket is one launch sequence writing its packed [8, width]
-    result into one preallocated [8, total] device tensor; one `.cpu()`
-    copy then brings every bucket back (the reference's single device
-    round trip of `_jitted_multi`)."""
+    """Solve aggregated and tandem lanes, bucket by bucket, on `device`
+    (`solve_slots`), and scatter the buckets back into lane order."""
     agg_out = _empty_result(plan.num_lanes) if plan is not None and plan.num_lanes else None
     tan_out = (
         _empty_result(tandem.num_lanes) if tandem is not None and tandem.num_lanes else None
@@ -483,29 +567,11 @@ def _solve_all(
     slots = bucket_slots(plan, tandem)
     if not slots:
         return agg_out, tan_out
-
-    packed = torch.empty(
-        (8, sum(s[4] for s in slots)), dtype=torch.float32, device=device
-    )
-    offset = 0
-    for kind, k_bucket, sub, _, width in slots:
-        if kind == "agg":
-            res = fleet_size(fleet_params_from_numpy(sub, device), k_bucket, n_iters, use_kernel)
-        else:
-            res = tandem_fleet_size(
-                tandem_params_from_numpy(sub, device), k_bucket, n_iters, use_kernel
-            )
-        pack_result(res, out=packed[:, offset : offset + width])
-        offset += width
-    packed_all = packed.cpu().numpy()
-
-    offset = 0
-    for kind, _, _, idx, width in slots:
-        res = unpack_result(packed_all[:, offset : offset + width])
-        offset += width
-        out = agg_out if kind == "agg" else tan_out
+    packed_all = solve_slots(slots, device, n_iters, use_kernel)
+    for slot, res in iter_slot_results(slots, packed_all):
+        out = agg_out if slot.kind == "agg" else tan_out
         for field, dst in zip(res, out):
-            dst[idx] = np.asarray(field)[: len(idx)]
+            dst[slot.idx] = field
     return agg_out, tan_out
 
 
@@ -574,39 +640,55 @@ class _LaneSource:
     plans/results plus the vectorized f64 transition-penalty values (bit
     identical to scalar `transition_penalty` on the same f32 results).
 
-    `materialized` counts Allocation objects actually constructed (the
-    unlimited solve must stay O(servers), never inflate O(lanes))."""
+    `materialized` counts Allocation objects actually constructed (a
+    constrained or unlimited solve must stay O(servers), never inflate
+    O(lanes))."""
 
-    __slots__ = ("plans", "results", "values", "batches", "materialized")
+    __slots__ = ("plans", "results", "values", "batches", "spot", "materialized")
 
     def __init__(self):
         self.plans: dict[str, object] = {}
         self.results: dict[str, object] = {}
         self.values: dict[str, np.ndarray] = {}
         self.batches: dict[str, np.ndarray] = {}
+        # per-kind spot columns when the System carries a spot tier:
+        # (cost_adj f64, spot_reps i64, discount f64, premium f64,
+        # trimmed bool); None keeps the pre-spot materialization (and
+        # its f32 cost conversion) bit-identical
+        self.spot: dict[str, tuple | None] = {}
         self.materialized = 0
 
-    def add(self, kind, plan, result, values, batches) -> None:
+    def add(self, kind, plan, result, values, batches, spot=None) -> None:
         self.plans[kind] = plan
         self.results[kind] = result
         self.values[kind] = values
         self.batches[kind] = batches
+        self.spot[kind] = spot
 
     def materialize(self, kind: str, lane: int) -> Allocation:
         self.materialized += 1
         res = self.results[kind]
         _, acc = self.plans[kind].lanes[lane]
+        spot = self.spot.get(kind)
         alloc = Allocation(
             accelerator=acc,
             num_replicas=int(res.num_replicas[lane]),
             batch_size=int(self.batches[kind][lane]),
-            cost=float(res.cost[lane]),
+            cost=(
+                float(res.cost[lane]) if spot is None
+                else float(spot[0][lane])
+            ),
             itl=float(res.itl[lane]),
             ttft=float(res.ttft[lane]),
             rho=float(res.rho[lane]),
             max_arrv_rate_per_replica=float(res.rate_star[lane]) / 1000.0,
         )
         alloc.value = float(self.values[kind][lane])
+        if spot is not None:
+            alloc.spot_replicas = int(spot[1][lane])
+            alloc.spot_discount = float(spot[2][lane])
+            alloc.spot_premium = float(spot[3][lane])
+            alloc.spot_trimmed = bool(spot[4][lane])
         return alloc
 
 
@@ -728,17 +810,21 @@ class FleetCandidates:
     kind: np.ndarray  # 0=agg, 1=tan per sorted row
     lane: np.ndarray  # lane index into that kind's plan
     value: np.ndarray  # f64 transition penalty (the solver objective)
-    cost: np.ndarray  # f64
+    cost: np.ndarray  # f64 (spot discount already applied)
     reps: np.ndarray  # int64 SLO-satisfying replica count
     chips: np.ndarray  # int64 chips per replica (slices x slice.chips)
     rank: np.ndarray  # int64 accelerator rank in the sorted catalog
-    spot_reps: np.ndarray  # int64 replicas of `reps` on the spot tier (0 until ported)
+    spot_reps: np.ndarray  # int64 replicas of `reps` on the spot tier
     bounds: np.ndarray  # per-server segment boundaries into the rows
     seg_server: np.ndarray  # server position per segment
 
     @property
     def num_rows(self) -> int:
         return len(self.server)
+
+
+def _incremental_enabled() -> bool:
+    return env_flag("INCREMENTAL_CYCLE", True)
 
 
 def _zero_load_dict(system: System, server) -> dict[str, Allocation] | None:
@@ -772,6 +858,9 @@ def calculate_fleet(
     backend: str = "cuda",
     device: str | torch.device | None = None,
     only: set[str] | None = None,
+    lam_tolerance: float = 0.0,
+    max_age_cycles: int = 0,
+    event_dirty=None,
 ) -> int:
     """Replace System.calculate_all() with the batched fleet path.
 
@@ -790,6 +879,18 @@ def calculate_fleet(
     the result arrays with a vectorized per-server best pick — so the
     unlimited solver constructs O(servers) Allocation objects, not
     O(lanes).
+
+    With INCREMENTAL_CYCLE on (the default) and no `only` subset, both
+    backends route through the incremental dirty-set cycle
+    (parallel/incremental.py): the snapshot's scan classifies every
+    server, clean servers replay last cycle's results and allocations
+    untouched, and only dirty lanes run a kernel — the full sizing
+    program for structure changes, the refold for λ-only changes.
+    `lam_tolerance`/`max_age_cycles` are the scan's λ anchoring knobs
+    (0 = exact). `event_dirty` (an iterable of server names) runs the
+    scan event-authoritative: only the named servers are re-read. It is
+    ignored on the non-incremental path, where the full pass is a
+    superset anyway.
     """
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
@@ -799,15 +900,25 @@ def calculate_fleet(
             f"backend 'cuda' needs a CUDA device, got {device}; use backend "
             "'torch' on the CPU"
         )
-    if system.spot:
-        raise NotImplementedError(
-            "spot tiers are not ported yet (inferno_tpu/spot/market.py is a "
-            "later slice of the port)"
-        )
 
     # the candidate table is rebuilt (or cleared) every call — a stale
     # table must never describe lanes of a previous solve
     system.fleet_candidates = None
+    system.fleet_candidates_builder = None
+    system.fleet_dirty = None
+
+    from inferno_tpu_torch.parallel import incremental
+
+    if _incremental_enabled() and _snapshot_enabled() and only is None:
+        return incremental.incremental_cycle(
+            system, device, backend, lam_tolerance, max_age_cycles,
+            event_dirty=event_dirty,
+        )
+    # a non-incremental pass over the state's own System voids the
+    # incremental state: its replay claims about these servers go stale
+    # (a pass over a different System leaves it intact — the tables are
+    # content-addressed through the snapshot)
+    incremental.reset_state_for(system)
 
     for name, server in system.servers.items():
         if only is not None and name not in only:
@@ -853,9 +964,18 @@ def calculate_fleet(
         cur_cost[i] = cur.cost
         cur_reps[i] = cur.num_replicas
 
+    # spot tier: per-rank economics columns, resolved once per cycle
+    # (spot/market.py); None keeps every lane on the pre-spot path
+    spot_cols = None
+    if getattr(system, "spot", None):
+        from inferno_tpu_torch.spot.market import rank_columns
+
+        spot_cols = rank_columns(system, sorted(system.accelerators))
+
     n = 0
     src = _LaneSource()
-    # (sidx, rank, value, cost, reps, chips, kind, lane) per feasible lane
+    # (sidx, rank, value, cost, reps, chips, spot_k, kind, lane) per
+    # feasible lane
     cat: list[tuple[np.ndarray, ...]] = []
     kinds = []
     if plan is not None and result is not None:
@@ -868,6 +988,32 @@ def calculate_fleet(
         sidx, rank, chips = _lane_orders(system, names, acc_order, p)
         cost64 = np.asarray(res.cost, np.float64)
         reps = np.asarray(res.num_replicas, np.int64)
+        spot = None
+        if spot_cols is not None:
+            from inferno_tpu_torch.spot.market import spot_split
+
+            # load-required replicas (min-replica floor excluded): the
+            # same f32 fold the sizing ran, at min_replicas = 0 —
+            # replicas above this are storm-safe SLO headroom
+            total = offered_load(
+                np.asarray(p.params.total_rate, np.float32),
+                np.asarray(p.params.target_tps, np.float32),
+                np.asarray(p.params.out_tokens, np.float32),
+                np,
+            )
+            required = fold_replicas(
+                total, np.asarray(res.rate_star, np.float32), np.int32(0), np
+            )
+            spot_k, disc, prem, trimmed = spot_split(
+                reps, required,
+                np.asarray(p.params.cost_per_replica, np.float64),
+                spot_cols[0][rank], spot_cols[1][rank],
+                spot_cols[2][rank], spot_cols[3][rank],
+            )
+            # discount lands on the cost BEFORE the transition penalty
+            # (the scalar path's apply_spot -> Server.calculate order)
+            cost64 = cost64 - disc
+            spot = (cost64, spot_k, disc, prem, trimmed)
         same_acc = rank == cur_rank[sidx]
         ccost = cur_cost[sidx]
         # transition_penalty(), elementwise in f64 with the scalar
@@ -882,12 +1028,19 @@ def calculate_fleet(
                 ACCEL_PENALTY_FACTOR * (ccost + cost64) + (cost64 - ccost),
             ),
         )
-        src.add(LaneAllocations._KIND[kind_id], p, res, value, batches)
+        if spot is not None:
+            # risky-spot premium rides the objective, not the price
+            value = value + spot[3]
+        src.add(LaneAllocations._KIND[kind_id], p, res, value, batches, spot)
         fe = np.asarray(res.feasible, bool)
         if fe.any():
+            spot_k_fe = (
+                spot[1][fe] if spot is not None
+                else np.zeros(int(fe.sum()), np.int64)
+            )
             cat.append((
                 sidx[fe], rank[fe], value[fe], cost64[fe],
-                reps[fe], np.asarray(chips, np.int64)[fe],
+                reps[fe], np.asarray(chips, np.int64)[fe], spot_k_fe,
                 np.full(int(fe.sum()), kind_id, np.int64), np.flatnonzero(fe),
             ))
     if not cat:
@@ -895,7 +1048,7 @@ def calculate_fleet(
 
     (
         sidx_all, rank_all, val_all, cost_all,
-        reps_all, chips_all, kind_all, lane_all,
+        reps_all, chips_all, spot_all, kind_all, lane_all,
     ) = (np.concatenate(parts) for parts in zip(*cat))
     # per-server segment-argmin with the deterministic tie-break
     # (value, cost, accelerator rank) — mirrors solve_unlimited's scalar key;
@@ -924,7 +1077,7 @@ def calculate_fleet(
         reps=reps_all[order],
         chips=chips_all[order],
         rank=rank_all[order],
-        spot_reps=np.zeros(len(order), np.int64),
+        spot_reps=spot_all[order],
         bounds=bounds,
         seg_server=s_sorted[starts],
     )

@@ -5,10 +5,7 @@ current allocations, dispatch to unlimited or greedy mode, compute
 per-server orchestration diffs. Takes the `System` explicitly (no
 singletons).
 
-Port copy of `inferno_tpu/solver/solver.py`. Unlimited mode only: the
-incremental-cycle replay hooks and the capacity-limited greedy solvers
-(`greedy.py`, `greedy_vec.py`) are later slices of the port, and limited
-mode raises until they land.
+Port copy of `inferno_tpu/solver/solver.py`, verbatim apart from its imports.
 """
 
 from __future__ import annotations
@@ -16,6 +13,8 @@ from __future__ import annotations
 from inferno_tpu_torch.config.types import OptimizerSpec
 from inferno_tpu_torch.core.allocation import Allocation, AllocationDiff, allocation_diff
 from inferno_tpu_torch.core.system import System
+from inferno_tpu_torch.solver.greedy import solve_greedy
+from inferno_tpu_torch.solver.greedy_vec import solve_greedy_fleet
 
 
 def solve_unlimited(system: System) -> None:
@@ -29,7 +28,28 @@ def solve_unlimited(system: System) -> None:
     precomputes. Candidates sized by the fleet path arrive as
     `LaneAllocations` whose `best()` IS that argmin: consuming it keeps
     the solve O(servers) with one materialized Allocation per server
-    instead of a Python scan over every lane."""
+    instead of a Python scan over every lane.
+
+    Systems sized by the incremental fleet cycle
+    (parallel/incremental.py) additionally replay clean servers'
+    standing allocations: on a persistent System only dirty servers'
+    picks are re-applied — bit-identical to the full loop, since a clean
+    server's best() is the exact object it already holds."""
+    if getattr(system, "fleet_dirty", None) is not None:
+        from inferno_tpu_torch.parallel.incremental import (
+            record_unlimited,
+            try_unlimited_replay,
+        )
+
+        if try_unlimited_replay(system):
+            return
+        _solve_unlimited_full(system)
+        record_unlimited(system)
+        return
+    _solve_unlimited_full(system)
+
+
+def _solve_unlimited_full(system: System) -> None:
     for server in system.servers.values():
         server.remove_allocation()
         allocs = server.all_allocations
@@ -56,19 +76,21 @@ class Solver:
         self.diff_allocation: dict[str, AllocationDiff] = {}
 
     def solve(self, system: System) -> None:
-        if not self.optimizer_spec.unlimited:
-            raise NotImplementedError(
-                "capacity-limited mode is not ported yet (the reference's "
-                "solver/greedy.py and solver/greedy_vec.py are a later slice)"
-            )
         # cur_allocation is always a value (an empty accelerator means "no
         # allocation"); allocation_diff normalizes that to "none"
         self.current_allocation = {
             name: server.cur_allocation for name, server in system.servers.items()
         }
 
-        system.degradations = {}
-        solve_unlimited(system)
+        if self.optimizer_spec.unlimited:
+            system.degradations = {}
+            solve_unlimited(system)
+        else:
+            # limited mode: the vectorized solver consumes the columnar
+            # candidate table when batched sizing attached one
+            # (system.fleet_candidates); systems sized scalar fall back
+            # to the scalar greedy inside — results are bit-identical
+            solve_greedy_fleet(system, self.optimizer_spec)
 
         self.diff_allocation = {}
         for name, server in system.servers.items():

@@ -1,8 +1,9 @@
 """Synthetic N-variant fleet fixtures for the port's tests and chip_smoke.py.
 
 Port copy of `inferno_tpu/testing/fleet.py`, the solve-layer part only:
-`SIZING_SHAPES`, `fleet_system_spec`, `perturb_loads`, `fleet_model` and
-`fleet_variant`, verbatim apart from the imports. The cluster and
+`SIZING_SHAPES`, `fleet_system_spec`, `perturb_loads`, `fleet_capacity`,
+`fleet_model` and `fleet_variant`, verbatim apart from the imports (and
+`fleet_capacity`'s backend and device). The cluster and
 Prometheus fixtures need the controller, a later slice of the port.
 
 `fleet_system_spec` builds an N-variant SystemSpec spanning the sizing
@@ -176,6 +177,25 @@ def fleet_model(i: int) -> str:
 
 def fleet_variant(i: int) -> str:
     return f"variant-{i:03d}"
+
+
+def fleet_capacity(
+    spec, fraction: float = 1.0, backend: str = "torch", device=None,
+) -> dict:
+    """Per-pool chip budgets sized at `fraction` of what the
+    UNCONSTRAINED solve of `spec` consumes — the lever for loose
+    (fraction >= 1) vs binding (fraction < 1) capacity fixtures. The
+    reference's `fleet_capacity` on the port's path: `backend`/`device`
+    go to `calculate_fleet` (callers on the CPU pass `device="cpu"`)."""
+    from inferno_tpu_torch.core import System
+    from inferno_tpu_torch.parallel import calculate_fleet
+    from inferno_tpu_torch.solver.solver import solve_unlimited
+
+    system = System(spec)
+    calculate_fleet(system, backend=backend, device=device)
+    solve_unlimited(system)
+    usage = system.allocate_by_pool()
+    return {pool: max(int(u.chips * fraction), 0) for pool, u in usage.items()}
 
 
 def assert_same_decisions(a, b, rtol: float = 1e-5) -> int:

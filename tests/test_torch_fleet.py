@@ -20,7 +20,7 @@ from inferno_tpu.parallel import calculate_fleet as ref_calculate_fleet
 from inferno_tpu.parallel import reset_fleet_state as ref_reset_fleet_state
 from inferno_tpu.solver.solver import solve_unlimited as ref_solve_unlimited
 from inferno_tpu.testing.fleet import fleet_system_spec as ref_fleet_system_spec
-from inferno_tpu_torch.config.types import CapacitySpec, OptimizerSpec, SpotPoolSpec, SystemSpec
+from inferno_tpu_torch.config.types import OptimizerSpec, SystemSpec
 from inferno_tpu_torch.core.system import System
 from inferno_tpu_torch.parallel import (
     LaneAllocations,
@@ -39,6 +39,16 @@ from inferno_tpu_torch.testing.fleet import (
 
 EDGE = dict(shapes_per_variant=3, tandem_every=5, zero_load_every=7,
             pinned_every=11, infeasible_every=13)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The fleets here are small, and the tests run beside other test
+    workers: torch's intra-op threads would only contend with them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(autouse=True)
@@ -153,7 +163,10 @@ def test_snapshot_off_matches_snapshot_on(monkeypatch):
     assert assert_same_decisions(on, off) == 0
 
 
-def test_unchanged_fleet_replays_and_perturbed_fleet_resolves():
+def test_unchanged_fleet_replays_and_perturbed_fleet_resolves(monkeypatch):
+    # the plan and solve memos belong to the full path; the incremental
+    # cycle (the default) replays clean servers on its own
+    monkeypatch.setenv("INCREMENTAL_CYCLE", "0")
     system = System(fleet_system_spec(20, **EDGE))
     calculate_fleet(system, backend="torch", device="cpu")
     plan = build_fleet(system)
@@ -203,7 +216,8 @@ def test_bucket_launch_plan():
     system = System(fleet_system_spec(60, **EDGE))
     slots = port_fleet.bucket_slots(build_fleet(system), build_tandem_fleet(system))
     assert {kind for kind, *_ in slots} == {"agg", "tan"}
-    for kind, k, sub, idx, width in slots:
+    for kind, k, sub, idx, width, cached in slots:
+        assert cached is None  # the full path runs no refold bucket
         assert k in (128, 512, 2048, 8192)
         assert width == port_fleet._pad_lanes(len(idx)) >= len(idx)
         assert len(sub.alpha) == width
@@ -232,23 +246,6 @@ def test_default_device_without_cuda_raises(monkeypatch):
         calculate_fleet(system)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calculate_fleet(system, backend="torch")
-
-
-def test_spot_tier_raises_not_implemented():
-    spec = fleet_system_spec(5, **EDGE)
-    spec.capacity = CapacitySpec(chips={"v5e": 64}, spot={"v5e": SpotPoolSpec(discount=0.6)})
-    system = System(spec)
-    with pytest.raises(NotImplementedError, match="spot"):
-        calculate_fleet(system, backend="torch", device="cpu")
-    with pytest.raises(NotImplementedError, match="spot"):
-        system.calculate_all()
-
-
-def test_limited_mode_raises_not_implemented():
-    system = System(fleet_system_spec(5, **EDGE))
-    calculate_fleet(system, backend="torch", device="cpu")
-    with pytest.raises(NotImplementedError, match="limited"):
-        Solver(OptimizerSpec(unlimited=False)).solve(system)
 
 
 def test_unlimited_solver_reports_diffs():
