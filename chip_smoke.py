@@ -58,17 +58,46 @@ Phases, in order; any failure raises and the script exits non-zero:
    backends "cuda" and "torch" identical when their sizings show no ceil
    boundary; degradation counts per step printed;
 11. timings of the incremental path on the 100k fleet of the reference's
-   incremental bench (1% λ-dirty steady cycle, median of 5; all-rate-dirty
-   cycle; cold full solve after reset_results; device busy ms of one
-   profiled 1% cycle) and of the 10k limited solve.
+   incremental bench (1% λ-dirty steady cycle, median of 3; cold full
+   solve after reset_results; device busy ms of one profiled 1% cycle) and
+   of the 10k limited solve;
+12. the reconcile loop on the card: the port's `Reconciler` (default
+   config, backend auto, which resolves to cuda, with KEEP_ACCELERATOR
+   false so that shapes are picked) over a 5,000-variant
+   `fleet_cluster` + `fleet_fake_prom` (above the scan's 4,096-server
+   limit: the production witness path), loads from --seed, every third
+   variant with a second (v5e-16) profile, through five cycles: cold;
+   unchanged; 1% of arrival rates moved; an event cycle with the movers
+   marked in the DirtyQueue; limited mode (OPTIMIZER_MODE limited,
+   TPU_CAPACITY at 80% of the unlimited solve's chips), with one profiled
+   steady cycle before it. Every cycle's allocations equal those of an
+   INCREMENTAL_CYCLE=0 full pass of the same SystemSpec on a fresh System
+   (bit for bit); the cold cycle launches both kernels and the λ-only
+   cycles stats_kernel only; cycles 1 and 3 decide as a backend-"torch"
+   reconciler on the card does (ROADMAP's ±1 boundary rule). Printed per
+   cycle: span times, the profile document's counters, scanned servers,
+   launches; and the device's busy time in the profiled cycle;
+13. the profile corrector's surrogate refit on the card: a 32-observation
+   window whose residual is out of band makes `corrected_parms` report
+   surrogate_used, with the fit's tensors on cuda; the refit's DecodeParms
+   match the same fit on the CPU from the same initial weights (the
+   default: the reference's seed-0 weights) within 1e-2 relative; both
+   fits timed.
 
-It prints a JSON line describing each kernel, then, as its last line,
+The card's name and power limit (nvidia-smi) are printed first and again
+before the kernels line.
+
+It prints a JSON line describing each kernel (its `launches`, times and
+errors are phase 4's main-path pass; phase 12 prints its own window's
+launches), then, as its last line,
 {"ok": true, "device": {...}}. It exits non-zero, printing no result,
-without a CUDA device or outside a checkout of the repo.
+without a CUDA device or outside a checkout of the repo. `--seed` seeds
+phase 12's loads (default 0).
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import statistics
@@ -77,6 +106,11 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+T0 = time.perf_counter()
+
+
+def _stamp(label):
+    print(f"[{time.perf_counter() - T0:.1f} s] {label}")
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth and f32 rate
 # outside the tensor cores, for the least time the card could take
@@ -368,6 +402,8 @@ def _check_decisions(system):
     return allocated
 
 
+# phase 11's timed steady 1% cycles
+STEADY_CYCLES = 3
 # the incremental phases: launches of each kernel per bucket of a dispatch
 # (a refold bucket runs one operating-point solve, two stages for tandem)
 REFOLD_STATS_LAUNCHES = {"agg": 1, "tan": 2}
@@ -503,23 +539,24 @@ def _decisions(system):
 def _full_pass(src, spec, backend):
     """The full path (INCREMENTAL_CYCLE=0 and the legacy lane walk,
     FLEET_SNAPSHOT=0, so the incremental state and snapshot stay
-    untouched) on a fresh System of the same inputs: loads are shared with
-    the spec, current allocations copied from `src`."""
+    untouched) on a fresh System of the same inputs, solved in the spec's
+    optimizer mode: loads are shared with the spec, current allocations
+    copied from `src` (None: the spec's own)."""
     from inferno_tpu_torch.core.system import System
     from inferno_tpu_torch.parallel import calculate_fleet
-    from inferno_tpu_torch.solver import solve_unlimited
+    from inferno_tpu_torch.solver import Optimizer
 
     prior = {k: os.environ.get(k) for k in ("INCREMENTAL_CYCLE", "FLEET_SNAPSHOT")}
     os.environ.update(INCREMENTAL_CYCLE="0", FLEET_SNAPSHOT="0")
     try:
         ref = System(spec)
-        for r, s_ in zip(ref.servers.values(), src.servers.values()):
+        for r, s_ in zip(ref.servers.values(), src.servers.values() if src else ()):
             cur = s_.cur_allocation
             r.cur_allocation.accelerator = cur.accelerator
             r.cur_allocation.num_replicas = cur.num_replicas
             r.cur_allocation.cost = cur.cost
         calculate_fleet(ref, backend=backend)
-        solve_unlimited(ref)
+        Optimizer(spec.optimizer).optimize(ref, calculate=False)
         return ref
     finally:
         for key, val in prior.items():
@@ -862,7 +899,7 @@ def _phase11(smi, limited_ms):
 
     from inferno_tpu_torch.core.system import System
     from inferno_tpu_torch.parallel import incremental, reset_fleet_state
-    from inferno_tpu_torch.testing.fleet import fleet_system_spec, perturb_loads
+    from inferno_tpu_torch.testing.fleet import fleet_system_spec
 
     print(f"11. timings, 100k fleet of the incremental bench, backend cuda, on {smi}")
     reset_fleet_state()
@@ -870,12 +907,10 @@ def _phase11(smi, limited_ms):
     _, counts, first_ms = _cycle(system, "cuda")
     rng = np.random.default_rng(11)
     steady = []
-    for _ in range(6):
+    for _ in range(STEADY_CYCLES + 1):
         _move_rates(system, rng, 0.01)
         steady.append(_staged_cycle(system, "cuda"))
     steady = steady[1:]  # the first 1% cycle meets new refold bucket shapes
-    perturb_loads(system)
-    _, all_counts, all_ms, all_stages = _staged_cycle(system, "cuda")
     incremental.reset_results()
     _, cold_counts, cold_ms, cold_stages = _staged_cycle(system, "cuda")
     _move_rates(system, rng, 0.01)
@@ -891,11 +926,9 @@ def _phase11(smi, limited_ms):
     times = [c[2] for c in steady]
     med = sorted(steady, key=lambda c: c[2])[len(steady) // 2]
     print(f"  first pass (snapshot, state and every lane): {first_ms:.1f} ms")
-    print(f"  steady 1% λ-dirty cycle: median {statistics.median(times):.1f} ms of 5 "
+    print(f"  steady 1% λ-dirty cycle: median {statistics.median(times):.1f} ms of {len(times)} "
           f"({', '.join(f'{t:.1f}' for t in times)}); launches {med[1]}; stages of the "
           f"median cycle (ms): {split(med[3])}")
-    print(f"  all-rate-dirty cycle: {all_ms:.1f} ms; launches {all_counts}; stages (ms): "
-          f"{split(all_stages)}")
     print(f"  cold full solve after reset_results: {cold_ms:.1f} ms; launches {cold_counts}; "
           f"stages (ms): {split(cold_stages)}")
     print(f"  profiled 1% cycle: {prof_ms:.1f} ms on the host clock, device busy {busy:.2f} ms "
@@ -913,10 +946,308 @@ def _incremental_phases(smi):
     _phase8(edge())
     _phase9(edge)
     times = _phase10()
+    _stamp("phases 8-10 done")
     _phase11(smi, times[0.8])
 
 
+# phase 12: the reconcile loop's fleet (above the scan's 4,096-server
+# full-signature limit) and its 1% movers
+RECONCILE_VARIANTS = 5000
+RECONCILE_MOVE = 0.01
+# phase 13: the corrector's refit on the card against the CPU
+REFIT_RTOL = 1e-2
+
+
+class _CaptureSystems:
+    """Records every System the reconciler builds, with a copy of its
+    SystemSpec taken before the solve, without changing what runs."""
+
+    def __init__(self):
+        from inferno_tpu_torch.controller import reconciler
+
+        self.mod = reconciler
+        self.real = reconciler.System
+        self.systems, self.specs = [], []
+
+    def __enter__(self):
+        from inferno_tpu_torch.config.types import SystemSpec
+
+        def make(spec):
+            self.specs.append(SystemSpec.from_dict(spec.to_dict()))
+            system = self.real(spec)
+            self.systems.append(system)
+            return system
+
+        self.mod.System = make
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.System = self.real
+
+
+def _reconcile_fleet(n, seed):
+    """The phase-12 cluster and load table: `fleet_cluster(n)` with max
+    batch sizes drawn from the seed (lanes in more than one K bucket) and a
+    second, v5e-16 profile on every third variant; arrival rate, token mix
+    and occupancy drawn from the seed, with observed latencies on the CR
+    profile's line (the corrector stays in band)."""
+    import numpy as np
+
+    from inferno_tpu_torch.config.types import DecodeParms, PrefillParms
+    from inferno_tpu_torch.controller.crd import AcceleratorProfile
+    from inferno_tpu_torch.testing.fleet import FLEET_NS, fleet_cluster, fleet_model
+
+    rng = np.random.default_rng(seed)
+    cluster = fleet_cluster(n)
+    batches = rng.choice([48, 96, 256, 512], n)
+    for i, va in enumerate(cluster.list_variant_autoscalings()):
+        va.spec.accelerators[0].max_batch_size = int(batches[i])
+        if i % 3 == 0:
+            va.spec.accelerators.append(AcceleratorProfile(
+                acc="v5e-16", acc_count=1, max_batch_size=int(2 * batches[i]),
+                at_tokens=128, decode_parms=DecodeParms(alpha=8.0, beta=0.04),
+                prefill_parms=PrefillParms(gamma=3.0, delta=0.008),
+            ))
+        cluster.add_variant_autoscaling(va)
+    rows = {}
+    for i in range(n):
+        running = float(rng.uniform(1.0, 8.0))
+        in_tok = float(rng.choice([64.0, 128.0, 512.0, 1024.0]))
+        rows[(fleet_model(i), FLEET_NS)] = {
+            "running": running, "arrival_rps": float(rng.uniform(0.5, 30.0)),
+            "in_tokens": in_tok, "out_tokens": float(rng.choice([64.0, 128.0, 256.0])),
+            "ttft_s": (5.0 + 0.02 * in_tok * running) / 1e3,
+            "itl_s": (18.0 + 0.3 * running) / 1e3, "max_batch": float(batches[i]),
+        }
+    return cluster, rows
+
+
+def _move_rows(rows, rng, fraction):
+    """Scale the arrival rate of `fraction` of the rows; returns the new
+    table and the moved variants' server names."""
+    from inferno_tpu_torch.testing.fleet import fleet_variant
+
+    keys = sorted(rows)
+    picks = rng.choice(len(keys), max(int(len(keys) * fraction), 1), replace=False)
+    out = {k: dict(v) for k, v in rows.items()}
+    names = []
+    for i in picks:
+        out[keys[i]]["arrival_rps"] *= float(rng.uniform(0.6, 1.7))
+        names.append(f"{fleet_variant(int(keys[i][0].rsplit('-', 1)[1]))}:{keys[i][1]}")
+    return out, names
+
+
+def _same_records(a, b, label):
+    """DecisionRecords of two reconcilers under ROADMAP's rule: reason and
+    shape exactly, replicas exactly or ±1 where lambda_max agrees within
+    1e-4 relative. Returns the number of boundary variants."""
+    boundary = 0
+    if [r.variant for r in a] != [r.variant for r in b]:
+        raise AssertionError(f"{label}: different variants")
+    for x, y in zip(a, b):
+        if (x.reason, x.accelerator) != (y.reason, y.accelerator):
+            raise AssertionError(f"{label}: {x.variant}: {x.reason}/{x.accelerator} vs "
+                                 f"{y.reason}/{y.accelerator}")
+        if x.replicas != y.replicas:
+            close = abs(x.lambda_max_rpm - y.lambda_max_rpm) <= 1e-4 * max(
+                abs(x.lambda_max_rpm), abs(y.lambda_max_rpm))
+            if abs(x.replicas - y.replicas) != 1 or not close:
+                raise AssertionError(f"{label}: {x.variant}: replicas {x.replicas} vs "
+                                     f"{y.replicas}")
+            boundary += 1
+    return boundary
+
+
+def _phase12(seed, smi):
+    """12. reconcile cycles of the port's controller on the card."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from inferno_tpu_torch.controller import Reconciler, ReconcilerConfig
+    from inferno_tpu_torch.ops import cuda_queueing
+    from inferno_tpu_torch.parallel import reset_fleet_state
+    from inferno_tpu_torch.testing.fleet import fleet_fake_prom
+
+    n = RECONCILE_VARIANTS
+    print(f"12. reconcile loop, {n} variants (fleet_cluster + fleet_fake_prom, seed {seed}), "
+          f"on {smi}")
+    # one decision log line a variant a cycle would flood the output
+    os.environ["LOG_LEVEL"] = "warn"
+    rng = np.random.default_rng(seed + 12)
+    cluster, rows0 = _reconcile_fleet(n, seed)
+    reset_fleet_state()
+    # the default config (backend auto) apart from KEEP_ACCELERATOR=false,
+    # so that the variants with two profiles are free to change shape
+    rec = Reconciler(cluster, fleet_fake_prom(rows0), ReconcilerConfig(keep_accelerator=False))
+    if rec.config.compute_backend != "cuda":
+        raise AssertionError(f"auto resolved to {rec.config.compute_backend!r}")
+    rows1, _ = _move_rows(rows0, rng, RECONCILE_MOVE)
+    rows2, movers = _move_rows(rows1, rng, RECONCILE_MOVE)
+    rows3, _ = _move_rows(rows2, rng, RECONCILE_MOVE)
+    plan = [
+        ("1 cold", rows0, None, False, "both"),
+        ("2 unchanged", rows0, None, False, "none"),
+        ("3 1% of rates moved", rows1, None, False, "stats"),
+        ("4 event cycle, movers marked", rows2, movers, False, "stats"),
+        ("  profiled steady 1% cycle", rows3, None, True, "stats"),
+        ("5 limited mode, capacity 80%", rows3, None, False, None),
+    ]
+    records, surfaces = {}, []
+    # one window over the six cycles: zeroed here, read after the last;
+    # each cycle's own launches are the counters' rise across it, and the
+    # full passes they are held against run after the window
+    cuda_queueing.LAUNCHES = 0
+    cuda_queueing.BISECT_LAUNCHES = 0
+    for label, rows, marked, profiled, expect in plan:
+        if label.startswith("5"):
+            chips = sum(r.replicas * (16 if r.accelerator == "v5e-16" else 4)
+                        for r in records["4"] if r.accelerator)
+            cluster.set_configmap("inferno-system", "inferno-autoscaler-config", {
+                "OPTIMIZER_MODE": "limited",
+                "TPU_CAPACITY": json.dumps({"v5e": int(0.8 * chips)}),
+            })
+        rec.prom = fleet_fake_prom(rows)
+        if marked is not None:
+            from inferno_tpu_torch.controller.watch import SOURCE_WATCH
+
+            rec.dirty_queue.mark(marked, source=SOURCE_WATCH, wake=False)
+        before = (cuda_queueing.LAUNCHES, cuda_queueing.BISECT_LAUNCHES)
+        with _CaptureSystems() as cap:
+            if profiled:
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    report, ms = _timed(rec.run_cycle)
+            else:
+                report, ms = _timed(rec.run_cycle)
+        counts = (cuda_queueing.LAUNCHES - before[0], cuda_queueing.BISECT_LAUNCHES - before[1])
+        if not report.optimization_ok or report.errors:
+            raise AssertionError(f"cycle {label}: {report.errors[:3]}")
+        records[label.split()[0]] = report.decisions
+        system, spec = cap.systems[-1], cap.specs[-1]
+        spans = {c.name: c.duration_ms for c in report.trace.children}
+        c = report.profile["counters"]
+        fd = system.fleet_dirty
+        print(f"  cycle {label}: {ms:.1f} ms; spans (ms) "
+              + ", ".join(f"{k} {spans.get(k, 0.0):.1f}"
+                          for k in ("collect", "analyze", "solve", "actuate"))
+              + f"; counters dirty_lanes {c.get('dirty_lanes', 0)}, skipped_servers "
+              f"{c.get('skipped_servers', 0)}, jit_dispatches {c.get('jit_dispatches', 0)}, "
+              f"jit_compiles {c.get('jit_compiles', 0)}, solve_replayed_servers "
+              f"{c.get('solve_replayed_servers', 0)}; scanned_servers "
+              f"{fd.scanned_servers if fd is not None else 'full path'}; "
+              f"launches stats_kernel {counts[0]}, bisect_kernel {counts[1]}; "
+              f"{report.variants_applied} applied")
+        if profiled:
+            busy = sum(e.self_device_time_total for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA) / 1e3
+            print(f"    device busy {busy:.2f} ms of a {ms:.1f} ms cycle "
+                  f"({100.0 * busy / ms:.2f}%) under torch.profiler")
+        if expect == "both" and not (counts[0] and counts[1]):
+            raise AssertionError(f"cycle {label}: launches {counts}, expected both kernels")
+        if expect == "stats" and (not counts[0] or counts[1]):
+            raise AssertionError(f"cycle {label}: launches {counts}, expected stats_kernel only")
+        if expect == "none" and counts != (0, 0):
+            raise AssertionError(f"cycle {label}: launches {counts}, expected none")
+        if label.startswith("1"):
+            shapes = {}
+            for r in report.decisions:
+                shapes[r.accelerator] = shapes.get(r.accelerator, 0) + 1
+            print(f"    shapes chosen {dict(sorted(shapes.items()))}")
+        surfaces.append((label, _limited_surface(system), spec))
+    total = (cuda_queueing.LAUNCHES, cuda_queueing.BISECT_LAUNCHES)
+    rec.close()
+    print(f"phase 12 (cuda, six cycles): stats_kernel launches {total[0]}, "
+          f"bisect_kernel {total[1]}")
+    if not (total[0] and total[1]):
+        raise AssertionError(f"phase 12 launches {total}: a kernel of the path never ran")
+    for label, surface, spec in surfaces:
+        full = _limited_surface(_full_pass(None, spec, "cuda"))
+        if surface != full:
+            raise AssertionError(f"cycle {label}: differs from a full pass of its SystemSpec")
+        steps = {}
+        for e in surface[1].values():
+            steps[e["step"]] = steps.get(e["step"], 0) + 1
+        print(f"  cycle {label.strip()} ≡ an INCREMENTAL_CYCLE=0 full pass of the same "
+              f"SystemSpec ({len(surface[0])} servers, allocations bit for bit"
+              + (f"; degradations {dict(sorted(steps.items()))}" if steps else "") + ")")
+
+    # backend torch on the card: cycles 1 and 3 decide alike
+    reset_fleet_state()
+    tcluster, _ = _reconcile_fleet(n, seed)
+    trec = Reconciler(tcluster, fleet_fake_prom(rows0),
+                      ReconcilerConfig(compute_backend="torch", keep_accelerator=False))
+    for label, rows in (("1", rows0), ("3", rows1)):
+        trec.prom = fleet_fake_prom(rows)
+        cuda_queueing.LAUNCHES = cuda_queueing.BISECT_LAUNCHES = 0
+        report, ms = _timed(trec.run_cycle)
+        if cuda_queueing.LAUNCHES or cuda_queueing.BISECT_LAUNCHES:
+            raise AssertionError("backend 'torch' launched a kernel")
+        boundary = _same_records(records[label], report.decisions, f"cycle {label} cuda vs torch")
+        print(f"  cycle {label}, backend torch: {ms:.1f} ms; decisions as backend cuda "
+              f"({boundary} ±1 boundary variants)")
+    trec.close()
+    reset_fleet_state()
+
+
+def _phase13():
+    """13. the profile corrector's surrogate refit on the card."""
+    import numpy as np
+    import torch
+
+    from inferno_tpu_torch.config.types import DecodeParms, PrefillParms
+    from inferno_tpu_torch.models import corrector
+    from inferno_tpu_torch.parallel import train
+
+    print("13. profile corrector: surrogate refit on the card")
+    # observed ITL bends mildly with batch and runs about 2.3x the CR
+    # line (alpha 5, beta 0.1): out of band, with a positive linearization
+    rng = np.random.default_rng(13)
+    window = [(float(b), (8.0 + 0.4 * b + 0.02 * b * b) * float(rng.uniform(0.97, 1.03)))
+              for b in rng.uniform(2.0, 16.0, size=32)]
+    seen = []
+    real = train.fit_surrogate
+
+    def spy(*args, **kwargs):
+        state, losses = real(*args, **kwargs)
+        opt_state = next(iter(state.optimizer.state.values()))
+        seen.append((next(state.model.parameters()).device.type,
+                     opt_state["exp_avg"].device.type, losses[-1]))
+        return state, losses
+
+    out = {}
+    train.fit_surrogate = spy
+    try:
+        for device in ("cuda", "cpu"):
+            # both from the default initial weights (the reference's)
+            c = corrector.ProfileCorrector(device=None if device == "cuda" else "cpu")
+            for conc, itl in window:
+                c.observe("v", corrector.Observation(
+                    concurrency=conc, in_tokens=16, out_tokens=64, itl_ms=itl, ttft_ms=3.0))
+            (dec, _, state), ms = _timed(lambda: c.corrected_parms(
+                "v", DecodeParms(alpha=5.0, beta=0.1), PrefillParms(gamma=2.0, delta=0.01)))
+            if not state.surrogate_used:
+                raise AssertionError(f"{device}: the refit fell back to ratio scaling")
+            out[device] = (dec, ms, seen[-1])
+    finally:
+        train.fit_surrogate = real
+    (gd, gms, gseen), (cd, cms, cseen) = out["cuda"], out["cpu"]
+    if gseen[:2] != ("cuda", "cuda"):
+        raise AssertionError(f"the fit ran on {gseen[:2]}, not on the card")
+    rel = max(abs(gd.alpha - cd.alpha) / abs(cd.alpha), abs(gd.beta - cd.beta) / abs(cd.beta))
+    print(f"  surrogate_used; fit tensors on {gseen[0]} (AdamW state on {gseen[1]}); refit "
+          f"DecodeParms cuda alpha {gd.alpha:.6g} beta {gd.beta:.6g}, cpu alpha {cd.alpha:.6g} "
+          f"beta {cd.beta:.6g}: max rel {rel:.3g} (tolerance {REFIT_RTOL:g}); final loss "
+          f"{gseen[2]:.6g} / {cseen[2]:.6g}")
+    print(f"  refit time (80 AdamW steps + linearization): cuda {gms:.1f} ms, cpu {cms:.1f} ms")
+    if rel > REFIT_RTOL:
+        raise AssertionError(f"refit on the card differs from the CPU fit: {rel}")
+
+
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--seed", type=int, default=0, help="seed of phase 12's loads")
+    args = parser.parse_args()
     import torch
 
     if not torch.cuda.is_available():
@@ -1144,9 +1475,18 @@ def main() -> int:
     del os.environ["INCREMENTAL_CYCLE"]
 
     # 8.-11. the incremental cycle, the event cycle, limited mode and spot
+    _stamp("phases 1-7 done")
     _incremental_phases(smi)
 
+    # 12. the reconcile loop; 13. the corrector's refit
+    _stamp("phases 8-11 done")
+    _phase12(args.seed, smi)
+    _stamp("phase 12 done")
+    _phase13()
+    _stamp("phase 13 done")
+
     replaces = "inferno_tpu/ops/pallas_queueing.py:84"
+    print(smi)  # again near the end: a reader of the output's tail sees the card
     print(json.dumps({"kernels": [
         {
             "name": "stats_kernel",

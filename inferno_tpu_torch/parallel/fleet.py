@@ -17,15 +17,26 @@ versions on whatever device it is given (the CPU tests use it). Both
 backends take the incremental dirty-set cycle (`parallel/incremental.py`)
 by default, and both paths dispatch through one function, `solve_slots`.
 
-Left out against the reference, each for a later slice of the port: the
-cycle profiler's counters (`obs/profiler.py`), sharding lanes over
-several devices (`shard_map`), the native C++ backend, and the planner's
-batched time-axis solve (`prepare_fleet_batch`/`calculate_fleet_batch`).
+The cycle profiler's counters (`obs/profiler.py`) keep the reference's
+names. `jit_dispatches` counts the dispatches of `solve_slots` (one per
+full pass or incremental cycle that solves anything); `jit_compiles` and
+`jit_compile_ms` count the first dispatch in the process of a launch
+signature (backend, device, and each bucket's kind, K, padded width and
+full-or-refold program), which on backend "cuda" includes building or
+loading the kernel library; `jit_execute_ms` the warm dispatches. The
+hooks only observe: decisions are bit-identical with the profiler on and
+off.
+
+Left out against the reference, each for a later slice of the port:
+sharding lanes over several devices (`shard_map`), the native C++
+backend, and the planner's batched time-axis solve
+(`prepare_fleet_batch`/`calculate_fleet_batch`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -43,6 +54,10 @@ from inferno_tpu_torch.core.allocation import (
     transition_penalty,
 )
 from inferno_tpu_torch.core.system import System
+
+# cycle-profiler hooks (obs/profiler.py): thread-local no-ops unless a
+# profiler is active; observation only
+from inferno_tpu_torch.obs import profiler as _prof
 from inferno_tpu_torch.ops.queueing import (
     DEFAULT_BISECT_ITERS,
     FleetParams,
@@ -199,8 +214,15 @@ _plan_memo: dict[str, tuple[tuple, object]] = {}
 def _memoized_plan(kind: str, key: tuple, build):
     cached = _plan_memo.get(kind)
     if cached is not None and cached[0] == key:
+        _prof.count("plan_memo_hits")
         return cached[1]
+    _prof.count("plan_memo_misses")
+    t0 = time.perf_counter()
     plan = build()
+    # "repack" attribution: the full lane-set rebuild the memo exists to
+    # avoid — rows/columns/meta extraction on the snapshot path, the
+    # per-lane Python walk on the legacy path
+    _prof.add_ms("plan_repack_ms", (time.perf_counter() - t0) * 1000.0)
     _plan_memo[kind] = (key, plan)
     return plan
 
@@ -231,7 +253,14 @@ def _snapshot_plan(
     this cycle (calculate_fleet updates once and hands the version to
     build_fleet and build_tandem_fleet)."""
     snap = _get_snapshot()
-    version = snap.update(system) if known_version is None else known_version
+    if known_version is None:
+        t0 = time.perf_counter()
+        version = snap.update(system)
+        # snapshot re-derivation: the O(servers) change-detection walk +
+        # column refresh of changed servers (vs the O(1) memo replay above)
+        _prof.add_ms("snapshot_update_ms", (time.perf_counter() - t0) * 1000.0)
+    else:
+        version = known_version
     key = (version, None if only is None else frozenset(only))
 
     def build():
@@ -520,6 +549,10 @@ def _solve_slot(slot: BucketSlot, device: torch.device, n_iters: int, use_kernel
     return refold(params, slot.k, lam, rate, feasible.to(torch.bool), use_kernel)
 
 
+# launch signatures dispatched so far in this process (see solve_slots)
+_compiled_sigs: set = set()
+
+
 def solve_slots(
     slots: list[BucketSlot], device: torch.device, n_iters: int, use_kernel: bool
 ) -> np.ndarray:
@@ -530,6 +563,18 @@ def solve_slots(
     preallocated [8, total] device tensor; one `.cpu()` copy then brings
     every bucket back (the reference's single device round trip of
     `_jitted_multi`). Returns that host array, buckets in slot order."""
+    # compile-vs-execute attribution: the first dispatch of a launch
+    # signature in the process is charged to jit_compile_ms (on backend
+    # "cuda" the very first one builds or loads the kernel library), every
+    # later one to jit_execute_ms. The seen-set is kept with no profiler
+    # active, so a profiler attached mid-process never counts a warm
+    # signature as a compile.
+    sig = (
+        use_kernel, n_iters, str(device),
+        tuple((s.kind, s.k, s.width, s.cached is None) for s in slots),
+    )
+    first_compile = sig not in _compiled_sigs
+    t0 = time.perf_counter()
     packed = torch.empty(
         (8, sum(s.width for s in slots)), dtype=torch.float32, device=device
     )
@@ -538,7 +583,18 @@ def solve_slots(
         res = _solve_slot(slot, device, n_iters, use_kernel)
         pack_result(res, out=packed[:, offset : offset + slot.width])
         offset += slot.width
-    return packed.cpu().numpy()
+    packed_all = packed.cpu().numpy()
+    solve_ms = (time.perf_counter() - t0) * 1000.0
+    # marked seen only after a dispatch that returned: one that raised
+    # (a failed build, an interrupt) must leave the compile to its retry
+    _compiled_sigs.add(sig)
+    _prof.count("jit_dispatches")
+    if first_compile:
+        _prof.count("jit_compiles")
+        _prof.add_ms("jit_compile_ms", solve_ms)
+    else:
+        _prof.add_ms("jit_execute_ms", solve_ms)
+    return packed_all
 
 
 def iter_slot_results(slots: list[BucketSlot], packed_all: np.ndarray):
@@ -601,7 +657,9 @@ def _solve_or_replay(
         and memo["plan"] is plan
         and memo["tandem"] is tandem
     ):
+        _prof.count("solve_memo_hits")
         return memo["results"]
+    _prof.count("solve_memo_misses")
     result, tresult = _solve_all(
         plan, tandem, device, DEFAULT_BISECT_ITERS, backend == "cuda"
     )
@@ -938,7 +996,12 @@ def calculate_fleet(
         if allocs:
             server.all_allocations = allocs
 
-    known = _get_snapshot().update(system) if _snapshot_enabled() else None
+    known = None
+    if _snapshot_enabled():
+        snap = _get_snapshot()
+        t0 = time.perf_counter()
+        known = snap.update(system)
+        _prof.add_ms("snapshot_update_ms", (time.perf_counter() - t0) * 1000.0)
     plan = build_fleet(system, only, _known_version=known)
     tandem = build_tandem_fleet(system, only, _known_version=known)
     system.candidates_calculated = True

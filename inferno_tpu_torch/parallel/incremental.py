@@ -37,16 +37,22 @@ the same dispatch and bucketing rule as the full path, on backend "cuda"
 (every stationary solve on `stats_kernel`, every bisection on
 `bisect_kernel`) or "torch" (their plain versions). The reference never
 runs its Pallas kernel here; the port runs its kernels on this path as
-on the full one. The cycle profiler's counters are left out.
+on the full one. The cycle profiler's counters keep the reference's
+names; `jit_*` are counted in `fleet.solve_slots` (see `parallel/fleet.py`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 
 from inferno_tpu_torch.config.defaults import ACCEL_PENALTY_FACTOR
+
+# cycle-profiler hooks (obs/profiler.py): thread-local no-ops unless a
+# profiler is active; observation only
+from inferno_tpu_torch.obs import profiler as _prof
 from inferno_tpu_torch.ops.queueing import (
     DEFAULT_BISECT_ITERS,
     FleetParams,
@@ -300,10 +306,12 @@ def incremental_cycle(
     from inferno_tpu_torch.parallel import fleet as F
 
     snap = F._get_snapshot()
+    t0 = time.perf_counter()
     if event_dirty is None:
         snap.scan_update(system, lam_tolerance, max_age_cycles)
     else:
         snap.scan_event_update(system, event_dirty, lam_tolerance)
+    _prof.add_ms("snapshot_update_ms", (time.perf_counter() - t0) * 1000.0)
 
     names = snap._names
     servers_list = list(system.servers.values())
@@ -352,6 +360,7 @@ def incremental_cycle(
     full_pos = np.flatnonzero(codes == SCAN_FULL)
     rate_pos = np.flatnonzero(codes == SCAN_RATE)
     wb_pos = np.flatnonzero(codes != SCAN_CLEAN)
+    _prof.count("skipped_servers", int(n_srv - len(wb_pos)))
 
     acc_names = sorted(system.accelerators)
     acc_order = {a: i for i, a in enumerate(acc_names)}
@@ -415,14 +424,19 @@ def incremental_cycle(
         packed_all = F.solve_slots(
             slots, device, DEFAULT_BISECT_ITERS, backend == "cuda"
         )
+        t0 = time.perf_counter()
         for slot, res in F.iter_slot_results(slots, packed_all):
             t = st.kinds[slot.kind]
             for field in _RESULT_FIELDS:
                 getattr(t.res, field)[slot.idx] = getattr(res, field)
             t.valid[slot.idx] = True
             n_lanes_total += len(slot.idx)
+        _prof.add_ms("incremental_scatter_ms", (time.perf_counter() - t0) * 1000.0)
+    _prof.count("dirty_lanes", n_lanes_total)
+    _prof.count("refold_lanes", refold_lanes)
 
     # -- writeback for dirty servers: penalties, spot, per-server argmin ----
+    t0 = time.perf_counter()
     spot_cols = None
     if getattr(system, "spot", None):
         from inferno_tpu_torch.spot.market import rank_columns
@@ -560,6 +574,7 @@ def incremental_cycle(
             st.pref_spot[pos] = best.spot_replicas
             pc = _chips_per_replica(system, names[pos], best)
             st.pref_chips[pos] = pc[1] if pc is not None else -1
+    _prof.add_ms("incremental_writeback_ms", (time.perf_counter() - t0) * 1000.0)
 
     # -- hand the cycle's results to the System -----------------------------
     if st.applied_system is system:
@@ -684,6 +699,7 @@ def try_unlimited_replay(system) -> bool:
             best = min(allocs.values(), key=candidate_sort_key) if allocs else None
         if best is not None:
             server.set_allocation(best)
+    _prof.count("solve_replayed_servers", int(fd.skipped_servers))
     return True
 
 
@@ -754,6 +770,7 @@ def try_greedy_bulk(system, optimizer_spec) -> bool:
             server.set_allocation(best)
     g["system"] = system
     g["applied"] = True
+    _prof.count("ledger_incremental_bulk")
     return True
 
 

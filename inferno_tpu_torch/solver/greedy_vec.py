@@ -29,8 +29,7 @@ extension rows, so mixed fleets solve in one pass. `GREEDY_VECTORIZED=0`
 forces the scalar path for A/B debugging.
 
 Port copy of `inferno_tpu/solver/greedy_vec.py`, verbatim apart from its
-imports and the cycle profiler's counters (left out, as in
-`parallel/fleet.py`).
+imports.
 """
 
 from __future__ import annotations
@@ -46,6 +45,10 @@ from inferno_tpu_torch.config.defaults import (
 )
 from inferno_tpu_torch.config.types import OptimizerSpec
 from inferno_tpu_torch.core.system import System
+
+# cycle-profiler hooks (obs/profiler.py): thread-local no-ops
+# unless a profiler is active; observation only
+from inferno_tpu_torch.obs import profiler as _prof
 from inferno_tpu_torch.solver.greedy import (
     DEGRADE_SPOT_HEADROOM,
     DEGRADE_ZEROED,
@@ -515,6 +518,7 @@ def solve_greedy_fleet(system: System, optimizer_spec: OptimizerSpec) -> None:
                     servers_list[pos].set_allocation(
                         materialize(int(e_start_a[e]), pos)
                     )
+                _prof.count("ledger_bulk_groups")
                 return []
 
         # exact sequential loop: heap keys replicate the scalar solver's
@@ -525,9 +529,12 @@ def solve_greedy_fleet(system: System, optimizer_spec: OptimizerSpec) -> None:
             (int(e_prio[e]), -float(delta0[e]), -float(value0[e]), k, int(e))
             for k, e in enumerate(group)
         ]
+        _prof.count("ledger_heap_groups")
+        heap_pops = 0
         reinsert_seq = -1
         unallocated: list[int] = []
         while heap:
+            heap_pops += 1
             _, _, _, _, e = heapq.heappop(heap)
             pos = int(e_pos_a[e])
             row = int(e_start_a[e] + cur[e])
@@ -594,6 +601,9 @@ def solve_greedy_fleet(system: System, optimizer_spec: OptimizerSpec) -> None:
                      reinsert_seq, e),
                 )
                 reinsert_seq -= 1
+        # one batched count, not one hook call per pop: the heap walk is
+        # the solver's hot path when a pool binds
+        _prof.count("ledger_heap_pops", heap_pops)
         return unallocated
 
     def settle(unallocated: list[int]) -> None:

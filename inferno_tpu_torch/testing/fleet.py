@@ -1,10 +1,13 @@
 """Synthetic N-variant fleet fixtures for the port's tests and chip_smoke.py.
 
-Port copy of `inferno_tpu/testing/fleet.py`, the solve-layer part only:
-`SIZING_SHAPES`, `fleet_system_spec`, `perturb_loads`, `fleet_capacity`,
-`fleet_model` and `fleet_variant`, verbatim apart from the imports (and
-`fleet_capacity`'s backend and device). The cluster and
-Prometheus fixtures need the controller, a later slice of the port.
+Port copy of `inferno_tpu/testing/fleet.py`: `SIZING_SHAPES`,
+`fleet_system_spec`, `perturb_loads`, `fleet_capacity`, `fleet_model`,
+`fleet_variant`, and the reconcile-cycle fixtures `fleet_cluster` (an
+`InMemoryCluster` of N variants) and `fleet_fake_prom` (a FakeProm
+answering the collector's grouped and per-variant queries from a static
+table), verbatim apart from the imports (and `fleet_capacity`'s backend
+and device). The MiniProm scrape targets (`fleet_targets`) go with the
+emulator slice.
 
 `fleet_system_spec` builds an N-variant SystemSpec spanning the sizing
 edge lanes — aggregated and tandem (disagg) shapes, zero-load variants,
@@ -14,6 +17,21 @@ comparison rule.
 """
 
 from __future__ import annotations
+
+import time
+
+from inferno_tpu_torch.config.types import DecodeParms, PrefillParms
+from inferno_tpu_torch.controller.crd import (
+    ACCELERATOR_LABEL,
+    AcceleratorProfile,
+    ConfigMapKeyRef,
+    VariantAutoscaling,
+    VariantAutoscalingSpec,
+)
+from inferno_tpu_torch.controller.engines import EngineMetrics, engine_for
+from inferno_tpu_torch.controller.kube import InMemoryCluster
+
+CONFIG_NS = "inferno-system"
 
 FLEET_NS = "fleet"
 SERVICE_CLASS = "Premium"
@@ -177,6 +195,127 @@ def fleet_model(i: int) -> str:
 
 def fleet_variant(i: int) -> str:
     return f"variant-{i:03d}"
+
+
+def fleet_cluster(
+    n_variants: int,
+    namespace: str = FLEET_NS,
+    config_namespace: str = CONFIG_NS,
+    replicas: int = 1,
+    slo_ttft: float = 500.0,
+    slo_itl: float = 24.0,
+) -> InMemoryCluster:
+    """An in-memory cluster with N variants of distinct models, each
+    owning a Deployment, plus the accelerator-cost / service-class /
+    controller ConfigMaps a cycle reads."""
+    cluster = InMemoryCluster()
+    cluster.set_configmap(config_namespace, "accelerator-unit-costs", {
+        "v5e-4": '{"cost": 10.0}',
+        "v5e-16": '{"cost": 10.0}',
+    })
+    entries = "".join(
+        f"  - model: {fleet_model(i)}\n"
+        f"    slo-ttft: {slo_ttft}\n    slo-tpot: {slo_itl}\n"
+        for i in range(n_variants)
+    )
+    cluster.set_configmap(config_namespace, "service-classes-config", {
+        "premium.yaml": f"name: {SERVICE_CLASS}\npriority: 1\ndata:\n{entries}",
+    })
+    cluster.set_configmap(config_namespace, "inferno-autoscaler-config", {})
+    for i in range(n_variants):
+        va = VariantAutoscaling(
+            name=fleet_variant(i),
+            namespace=namespace,
+            labels={ACCELERATOR_LABEL: "v5e-4"},
+            spec=VariantAutoscalingSpec(
+                model_id=fleet_model(i),
+                slo_class_ref=ConfigMapKeyRef(
+                    name="service-classes-config", key=SERVICE_CLASS
+                ),
+                accelerators=[
+                    AcceleratorProfile(
+                        acc="v5e-4", acc_count=1, max_batch_size=64,
+                        at_tokens=128,
+                        decode_parms=DecodeParms(alpha=18.0, beta=0.3),
+                        prefill_parms=PrefillParms(gamma=5.0, delta=0.02),
+                    ),
+                ],
+            ),
+        )
+        cluster.add_variant_autoscaling(va)
+        cluster.add_deployment(namespace, fleet_variant(i), replicas=replicas)
+    return cluster
+
+
+def fleet_fake_prom(
+    rows: dict[tuple[str, str], dict],
+    engine: EngineMetrics | None = None,
+    age_seconds: float = 0.0,
+    grouped: bool = True,
+):
+    """A FakeProm answering BOTH the coalesced grouped shapes and the
+    per-variant single-query shapes from one static table, for bit-exact
+    parity tests (grouped on vs off must produce identical cycles).
+
+    rows: (model, namespace) -> dict with any of running, arrival_rps,
+    in_tokens, out_tokens, ttft_s, itl_s, max_batch. `grouped=False`
+    leaves the grouped queries unanswered (empty vectors), forcing the
+    per-variant fallback — the lever for fallback tests.
+    """
+    from inferno_tpu_torch.controller.collector import grouped_queries
+    from inferno_tpu_torch.controller.promclient import FakeProm, Sample
+
+    engine = engine or engine_for("vllm-tpu")
+    prom = FakeProm()
+    ml = engine.model_label
+
+    def col(field: str, default: float = 0.0):
+        return [
+            ({ml: m, "namespace": ns}, float(vals.get(field, default)))
+            for (m, ns), vals in sorted(rows.items())
+        ]
+
+    if grouped and rows:
+        qs = grouped_queries(engine, set(rows))
+        prom.set_samples(qs["running"], col("running"), age_seconds=age_seconds)
+        prom.set_samples(qs["arrival"], col("arrival_rps"), age_seconds=age_seconds)
+        prom.set_samples(qs["avg_in"], col("in_tokens"), age_seconds=age_seconds)
+        prom.set_samples(qs["avg_out"], col("out_tokens"), age_seconds=age_seconds)
+        prom.set_samples(qs["ttft"], col("ttft_s"), age_seconds=age_seconds)
+        prom.set_samples(qs["itl"], col("itl_s"), age_seconds=age_seconds)
+        if "max_batch" in qs:
+            prom.set_samples(qs["max_batch"], col("max_batch", 64.0),
+                             age_seconds=age_seconds)
+
+    def handler(q: str):
+        # per-variant shapes: find the row whose model id appears in the
+        # query selector (the collector always filters on the model label)
+        for (m, ns), vals in sorted(rows.items()):
+            if f'"{m}"' not in q:
+                continue
+
+            def s(v: float):
+                return [Sample(labels={}, value=float(v),
+                               timestamp=time.time() - age_seconds)]
+
+            if "num_requests_running" in q or "slots_used" in q:
+                return s(vals.get("running", 0.0))
+            if "num_requests_max" in q or "total_slots" in q:
+                return s(vals.get("max_batch", 64.0))
+            if "success" in q:
+                return s(vals.get("arrival_rps", 0.0))
+            if "prompt_tokens" in q or "input_length" in q:
+                return s(vals.get("in_tokens", 0.0))
+            if "generation_tokens" in q or "output_length" in q:
+                return s(vals.get("out_tokens", 0.0))
+            if "first_token" in q:
+                return s(vals.get("ttft_s", 0.0))
+            if "per_output_token" in q:
+                return s(vals.get("itl_s", 0.0))
+        return []
+
+    prom.add_handler(lambda q: True, handler)
+    return prom
 
 
 def fleet_capacity(

@@ -2,8 +2,10 @@
 chip_smoke.py, imports jax, flax, optax or the JAX package inferno_tpu.
 
 Checked twice: statically (an AST scan of every import statement) and
-dynamically (a subprocess in which those imports are blocked sizes a
-fleet through the port on the CPU).
+dynamically (subprocesses in which those imports are blocked size a fleet
+and run three reconcile cycles through the port on the CPU). The scan
+also holds every import to what the card's installation has: the
+standard library, torch, numpy, PyYAML, triton, and the port itself.
 """
 
 import ast
@@ -17,6 +19,8 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "inferno_tpu")
+# third-party packages the card's installation provides and the port uses
+ALLOWED_THIRD_PARTY = ("torch", "numpy", "yaml", "triton", "inferno_tpu_torch")
 
 
 def _sources():
@@ -40,6 +44,16 @@ def test_no_forbidden_import_in_port_sources():
     for path in _sources():
         for lineno, module in _imported_modules(path):
             if module.split(".")[0] in FORBIDDEN:
+                bad.append(f"{path.relative_to(ROOT)}:{lineno}: {module}")
+    assert not bad, bad
+
+
+def test_port_imports_only_what_the_card_has():
+    bad = []
+    for path in _sources():
+        for lineno, module in _imported_modules(path):
+            top = module.split(".")[0]
+            if top not in sys.stdlib_module_names and top not in ALLOWED_THIRD_PARTY:
                 bad.append(f"{path.relative_to(ROOT)}:{lineno}: {module}")
     assert not bad, bad
 
@@ -77,6 +91,40 @@ def test_port_sizes_a_fleet_with_jax_blocked():
                        for m, v in sys.modules.items() if v is not None)
         print("ok", lanes, picked)
     """)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
+
+
+def test_port_reconciles_with_jax_blocked():
+    """Three reconcile cycles of the port's controller (backend torch on
+    the CPU): cold, unchanged, and with arrival rates moved."""
+    proc = _run_blocked("""
+        from inferno_tpu_torch.controller import Reconciler, ReconcilerConfig
+        from inferno_tpu_torch.testing.fleet import (
+            FLEET_NS, fleet_cluster, fleet_fake_prom, fleet_model,
+        )
+
+        rows = {(fleet_model(i), FLEET_NS): {
+            "running": 3.0, "arrival_rps": 2.0 + i, "in_tokens": 128.0,
+            "out_tokens": 128.0, "ttft_s": 0.05, "itl_s": 0.02,
+            "max_batch": 64.0} for i in range(8)}
+        rec = Reconciler(fleet_cluster(8), fleet_fake_prom(rows), ReconcilerConfig(
+            compute_backend="torch", compute_device="cpu"))
+        applied = []
+        for cycle in range(3):
+            if cycle == 2:
+                rows = {k: dict(v, arrival_rps=v["arrival_rps"] * 1.5)
+                        for k, v in rows.items()}
+                rec.prom = fleet_fake_prom(rows)
+            report = rec.run_cycle()
+            assert report.optimization_ok and not report.errors, report.errors
+            assert report.profile["counters"]["prom_queries"] > 0
+            applied.append(report.variants_applied)
+        assert applied == [8, 8, 8], applied
+        assert not any(m.split(".")[0] in ("jax", "inferno_tpu")
+                       for m, v in sys.modules.items() if v is not None)
+        print("ok", applied)
+    """, extra_env={"LOG_LEVEL": "warn"})
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok")
 
