@@ -84,6 +84,33 @@ Phases, in order; any failure raises and the script exits non-zero:
    default: the reference's seed-0 weights) within 1e-2 relative; both
    fits timed.
 
+14. the planner on the card: (a) a 168-step diurnal week (3600 s steps,
+   seed 0) of the 10k edge fleet through calculate_fleet_batch(backend=
+   "cuda"), cold: one counter window around it shows one full sizing of
+   every bucket (4 + 2 launches per aggregated bucket, 10 + 2 per tandem
+   bucket) and nothing per row; six evenly spaced timesteps bit-identical
+   (choice, replicas, chips, cost, value) to an INCREMENTAL_CYCLE=0
+   calculate_fleet(cuda) + solve_unlimited at that row's rates; the whole
+   week on backend "torch" on the card equal under ROADMAP's ±1 boundary
+   rule; the prep's and the per-row solve's host ms, and the device's busy
+   time in a profiled cold prep; (b) a 200-seed flash-crowd Monte Carlo of
+   a 10k one-shape fleet over 168 steps through replay_montecarlo(cuda):
+   three kept members bit-identical to their serial calculate_fleet_batch,
+   their envelope inputs equal to aggregate_replay, and an 8-seed
+   sub-ensemble at chunk_steps=7 identical to the default chunking; (c)
+   storm replays of a 200-variant fleet (48 steps of 600 s, the canonical
+   spot tier): pre-positioning strictly cuts violation-seconds at a cost
+   overhead of at most 10%, and the cuda and torch reports (single storm
+   and a 50-seed ensemble) are equal, or differ only through ±1 boundary
+   cells of the placements;
+15. the flight recorder: the port's Reconciler (backend auto, cuda) over
+   phase 12's 5,000-variant cluster records three cycles (cold, 1% λ,
+   limited at 80%) into a temporary directory; read_artifact loads all
+   three with no warnings and nothing dropped; replay_cycle_parity(cuda)
+   matches every cycle (all variants compared, the limited cycle's
+   capacity_limited ones skipped and counted); `planner --trace` reports
+   coverage 1.0 and every sampled parity matching; `obs.report` exits 0.
+
 The card's name and power limit (nvidia-smi) are printed first and again
 before the kernels line.
 
@@ -1244,6 +1271,372 @@ def _phase13():
         raise AssertionError(f"refit on the card differs from the CPU fit: {rel}")
 
 
+# phase 14: the planner on the card. (a) the reference's planner bench
+# (bench.py:2115) on the 10k edge fleet; (b) its Monte Carlo bench
+# (bench.py:2251); (c) its storm bench (bench.py:761)
+PLANNER_VARIANTS = 10000
+PLANNER_STEPS = 168
+PLANNER_PARITY_STEPS = 6
+MC_VARIANTS = 10000
+MC_SEEDS = 200
+MC_KEEP = (0, 99, 199)
+MC_SUB_SEEDS = 8
+MC_SUB_CHUNK = 7
+STORM_VARIANTS = 200
+STORM_STEPS = 48
+STORM_STEP_S = 600.0
+STORM_SEEDS = 50
+# phase 15: the recorded reconcile cycles (phase 12's cluster)
+RECORD_VARIANTS = RECONCILE_VARIANTS
+
+
+class _PrepClock:
+    """Host ms of a batched solve's two halves, each ending in a
+    synchronize: the prep (`FleetBatchPrep.__init__`: snapshot, plans and
+    the grid solve on the card) and the per-row solve (`FleetBatchPrep.
+    solve`: host numpy over [rows, lanes] slabs). Keeps the last prep."""
+
+    def __init__(self):
+        from inferno_tpu_torch.parallel import fleet
+
+        self.cls = fleet.FleetBatchPrep
+        self.ms = {}
+        self.prep = None
+
+    def __enter__(self):
+        self.real = (self.cls.__init__, self.cls.solve)
+        real_init, real_solve = self.real
+
+        def init(prep, *args, **kwargs):
+            t0 = time.perf_counter()
+            real_init(prep, *args, **kwargs)
+            _sync()
+            self.ms["prep"] = self.ms.get("prep", 0.0) + (time.perf_counter() - t0) * 1e3
+            self.prep = prep
+
+        def solve(prep, *args, **kwargs):
+            t0 = time.perf_counter()
+            out = real_solve(prep, *args, **kwargs)
+            self.ms["rows"] = self.ms.get("rows", 0.0) + (time.perf_counter() - t0) * 1e3
+            return out
+
+        self.cls.__init__, self.cls.solve = init, solve
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.__init__, self.cls.solve = self.real
+
+
+def _phase14a(smi):
+    """14(a). a diurnal week of the 10k edge fleet through calculate_fleet_batch."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from inferno_tpu_torch.core.system import System
+    from inferno_tpu_torch.ops import cuda_queueing
+    from inferno_tpu_torch.parallel import (
+        calculate_fleet,
+        calculate_fleet_batch,
+        prepare_fleet_batch,
+        reset_fleet_state,
+    )
+    from inferno_tpu_torch.planner.scenarios import base_rates_from_system, diurnal
+    from inferno_tpu_torch.solver import solve_unlimited
+    from inferno_tpu_torch.testing.fleet import assert_same_batch, fleet_system_spec
+
+    n, steps = PLANNER_VARIANTS, PLANNER_STEPS
+    print(f"14. planner on the card, {smi}")
+    print(f"14(a). diurnal week: {n}-variant edge fleet, {steps} steps of 3600 s, seed 0, "
+          "calculate_fleet_batch(backend='cuda'), cold")
+    system = System(fleet_system_spec(n, **FLEET_KW))
+    trace = diurnal(base_rates_from_system(system), steps, 3600.0, seed=0)
+    reset_fleet_state()
+    # one counter window around the cold week
+    cuda_queueing.LAUNCHES = 0
+    cuda_queueing.BISECT_LAUNCHES = 0
+    with _SlotSpy() as spy, _PrepClock() as clock:
+        res, week_ms = _timed(lambda: calculate_fleet_batch(system, trace.rates, backend="cuda"))
+    counts = (cuda_queueing.LAUNCHES, cuda_queueing.BISECT_LAUNCHES)
+    plan = spy.plan()
+    print(f"  prep dispatch (kind, K, lanes, padded, program) {plan}")
+    print(f"  launches over the cold week: stats_kernel {counts[0]}, bisect_kernel {counts[1]}; "
+          f"one full sizing of its {len(plan)} buckets makes {spy.expected()[0]} and "
+          f"{spy.expected()[1]}")
+    buckets = [(p[0], p[1]) for p in plan]
+    if (counts != spy.expected() or {p[4] for p in plan} != {"full"}
+            or len(set(buckets)) != len(buckets)):
+        raise AssertionError(f"14(a): launches {counts} are not one full sizing of "
+                             f"every bucket")
+    prep = clock.prep
+    print(f"  week {week_ms:.1f} ms = prep {clock.ms['prep']:.1f} ms (snapshot, plans, grid "
+          f"solve on the card) + per-row solve {clock.ms['rows']:.1f} ms ({steps} rows x "
+          f"{prep.n_lanes} feasible lanes, host numpy; {clock.ms['rows'] / steps:.2f} ms a "
+          f"row)")
+
+    # sampled timesteps against the live path on a fresh System
+    picks = sorted({int(t) for t in np.linspace(0, steps - 1, PLANNER_PARITY_STEPS)})
+    acc_idx = {a: i for i, a in enumerate(res.accelerators)}
+    live = System(fleet_system_spec(n, **FLEET_KW))
+    os.environ["INCREMENTAL_CYCLE"] = "0"
+    try:
+        for t in picks:
+            for j, server in enumerate(live.servers.values()):
+                if server.load is not None:
+                    server.load.arrival_rate = float(trace.rates[t, j])
+            _, ms = _timed(lambda: (calculate_fleet(live, backend="cuda"),
+                                    solve_unlimited(live)))
+            bad = 0
+            for j, server in enumerate(live.servers.values()):
+                a = server.allocation
+                if a is None or not a.accelerator:
+                    want = (-1, 0, 0, 0.0, 0.0)
+                else:
+                    model = live.models[server.model_name]
+                    want = (acc_idx[a.accelerator], a.num_replicas,
+                            a.num_replicas * model.slices_per_replica(a.accelerator)
+                            * live.accelerators[a.accelerator].chips, a.cost, a.value)
+                got = (int(res.choice[t, j]), int(res.replicas[t, j]), int(res.chips[t, j]),
+                       float(res.cost[t, j]), float(res.value[t, j]))
+                bad += got != want
+            print(f"  timestep {t}: {bad} of {n} servers differ from an INCREMENTAL_CYCLE=0 "
+                  f"calculate_fleet(cuda) + solve_unlimited ({ms:.1f} ms)")
+            if bad:
+                raise AssertionError(f"14(a): timestep {t} differs from the live path")
+    finally:
+        del os.environ["INCREMENTAL_CYCLE"]
+
+    # the whole week on the plain versions on the card
+    reset_fleet_state()
+    with _PrepClock() as tclock:
+        tres, tms = _timed(lambda: calculate_fleet_batch(system, trace.rates, backend="torch"))
+    boundary = assert_same_batch(prep, res, tclock.prep, tres)
+    print(f"  backend torch on the card: week {tms:.1f} ms (prep {tclock.ms['prep']:.1f}); "
+          f"{boundary} ±1 boundary cells of {res.replicas.size}, all else identical")
+
+    # the device's busy time in one cold prep
+    reset_fleet_state()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, pms = _timed(lambda: prepare_fleet_batch(system, backend="cuda"))
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3
+    print(f"  profiled cold prep: {pms:.1f} ms on the host clock, device busy {busy:.2f} ms "
+          f"({100.0 * busy / pms:.2f}%)")
+    reset_fleet_state()
+
+
+def _phase14b():
+    """14(b). the Monte Carlo ensemble of the reference's bench."""
+    import numpy as np
+
+    from inferno_tpu_torch.core.system import System
+    from inferno_tpu_torch.parallel import calculate_fleet_batch, reset_fleet_state
+    from inferno_tpu_torch.planner.montecarlo import replay_montecarlo
+    from inferno_tpu_torch.planner.replay import aggregate_replay
+    from inferno_tpu_torch.planner.scenarios import (
+        GENERATORS,
+        base_rates_from_system,
+        ensemble_seeds,
+    )
+    from inferno_tpu_torch.testing.fleet import fleet_system_spec
+
+    n, steps, seeds = MC_VARIANTS, PLANNER_STEPS, MC_SEEDS
+    print(f"14(b). Monte Carlo: {n} variants (shapes_per_variant=1), flash_crowd, {steps} "
+          f"steps, {seeds} seeds, replay_montecarlo(backend='cuda')")
+    reset_fleet_state()
+    system = System(fleet_system_spec(n, shapes_per_variant=1))
+    keep = tuple(k for k in MC_KEEP if k < seeds)
+    mc, ms = _timed(lambda: replay_montecarlo(
+        system, "flash_crowd", steps, 3600.0, seeds=seeds, backend="cuda",
+        per_seed=True, keep_seeds=keep))
+    prof = mc["profile"]
+    print(f"  ensemble {ms:.1f} ms, {1e3 * seeds / ms:.1f} seeds/s; profile (ms) "
+          + ", ".join(f"{k} {v}" for k, v in prof.items() if isinstance(v, (int, float))))
+    base = base_rates_from_system(system)
+    members = ensemble_seeds("flash_crowd", 0, seeds)
+    for k in keep:
+        trace = GENERATORS["flash_crowd"](base, steps, 3600.0, seed=members[k])
+        res = calculate_fleet_batch(system, trace.rates, backend="cuda")
+        if not (np.array_equal(mc["_kept"][k]["choice"], res.choice)
+                and np.array_equal(mc["_kept"][k]["replicas"], res.replicas)):
+            raise AssertionError(f"14(b): member {k} differs from its serial replay")
+        serial = aggregate_replay(system, res, 3600.0, False)
+        for pool, stats in serial["pools"].items():
+            got = mc["pools"][pool]["per_seed"]
+            for key in ("peak", "p95", "mean"):
+                if got[key][k] != stats[key]:
+                    raise AssertionError(f"14(b): member {k} pool {pool} {key}")
+        if (mc["per_seed"]["violation_seconds"][k] != serial["violation_seconds"]
+                or mc["per_seed"]["cost_total_usd"][k] != serial["cost"]["total_usd"]):
+            raise AssertionError(f"14(b): member {k} violation-seconds or cost")
+        print(f"  member {k} (seed {members[k]}): choice and replicas bit-identical to its "
+              f"serial calculate_fleet_batch; envelope inputs equal to aggregate_replay "
+              f"(total ${serial['cost']['total_usd']:.2f})")
+    sub = {}
+    for chunk in (None, MC_SUB_CHUNK):
+        reset_fleet_state()
+        doc = replay_montecarlo(system, "flash_crowd", steps, 3600.0, seeds=MC_SUB_SEEDS,
+                                backend="cuda", per_seed=True, chunk_steps=chunk)
+        doc.pop("profile")
+        sub[chunk] = doc
+    if sub[None] != sub[MC_SUB_CHUNK]:
+        raise AssertionError("14(b): chunk_steps changed the ensemble's report")
+    print(f"  {MC_SUB_SEEDS}-seed sub-ensemble at chunk_steps={MC_SUB_CHUNK} identical to the "
+          "default chunking")
+    reset_fleet_state()
+
+
+def _phase14c():
+    """14(c). spot-storm replays at the reference bench's configuration."""
+    import dataclasses
+
+    from inferno_tpu_torch.config.types import CapacitySpec, SpotPoolSpec
+    from inferno_tpu_torch.core.system import System
+    from inferno_tpu_torch.parallel import calculate_fleet_batch, reset_fleet_state
+    from inferno_tpu_torch.planner.scenarios import base_rates_from_system, diurnal
+    from inferno_tpu_torch.spot.scenarios import (
+        _risk_blind,
+        build_storms,
+        replay_spot_storm,
+        replay_spot_storm_ensemble,
+    )
+    from inferno_tpu_torch.testing.fleet import assert_same_batch, fleet_system_spec
+
+    tier = SpotPoolSpec(discount=0.3, hazard_per_hr=0.005, blast_radius=0.06,
+                        recovery_s=1800.0)
+    print(f"14(c). storms: {STORM_VARIANTS} variants, {STORM_STEPS} steps of {STORM_STEP_S:.0f} s, "
+          f"tier {dataclasses.asdict(tier)}")
+    spec = fleet_system_spec(STORM_VARIANTS, shapes_per_variant=2)
+    spec.capacity = CapacitySpec(chips={}, spot={"v5e": tier})
+    trace = diurnal(base_rates_from_system(System(spec)), STORM_STEPS, STORM_STEP_S, seed=0)
+    storm = build_storms(["spot_reclaim"], ["v5e"], STORM_STEPS, STORM_STEP_S, seed=7)[0]
+    storm = dataclasses.replace(storm, events=tuple(
+        dataclasses.replace(e, fraction=min(e.fraction, tier.blast_radius))
+        for e in storm.events))
+    reports = {}
+    for backend in ("cuda", "torch"):
+        reset_fleet_state()
+        single, sms = _timed(lambda: replay_spot_storm(spec, trace, storm, backend=backend))
+        ens, ems = _timed(lambda: replay_spot_storm_ensemble(
+            spec, trace, "spot_reclaim", seeds=STORM_SEEDS, backend=backend))
+        reports[backend] = (single, ens)
+        print(f"  {backend}: replay_spot_storm {sms:.1f} ms, {STORM_SEEDS}-seed ensemble "
+              f"{ems:.1f} ms")
+    single, ens = reports["cuda"]
+    reactive, prepos = single["reactive"], single["prepositioned"]
+    print(f"  violation-seconds reactive {reactive['violation_seconds']}, pre-positioned "
+          f"{prepos['violation_seconds']}; cost delta {single['cost_delta_pct']}%; ensemble "
+          f"saving probability {ens['saving_probability']}, violation_s_saved "
+          f"{ens['violation_s_saved']}")
+    if not (prepos["violation_seconds"] < reactive["violation_seconds"]
+            and single["cost_delta_pct"] <= 10.0):
+        raise AssertionError("14(c): pre-positioning did not cut violation-seconds within "
+                             "10% cost")
+    # the two backends' placements under ROADMAP's rule; with no ±1
+    # boundary cell between them the reports must be equal
+    boundary = 0
+    for spot_cfg in (_risk_blind(dict(spec.capacity.spot)), dict(spec.capacity.spot)):
+        placed = dataclasses.replace(spec, capacity=dataclasses.replace(spec.capacity,
+                                                                        spot=spot_cfg))
+        out = []
+        for backend in ("cuda", "torch"):
+            reset_fleet_state()
+            with _PrepClock() as clock:
+                res = calculate_fleet_batch(System(placed), trace.rates, backend=backend)
+            out.append((clock.prep, res))
+        boundary += assert_same_batch(*out[0], *out[1])
+    same = reports["cuda"] == reports["torch"]
+    print(f"  cuda vs torch: {boundary} ±1 boundary cells in the two placements; storm "
+          f"reports (single and ensemble) {'equal' if same else 'differ'}")
+    if boundary == 0 and not same:
+        raise AssertionError("14(c): cuda and torch storm reports differ with no boundary cell")
+    reset_fleet_state()
+
+
+def _phase15(seed, smi):
+    """15. the flight recorder on the card and the replay of what it recorded."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+
+    from inferno_tpu_torch.controller import Reconciler, ReconcilerConfig
+    from inferno_tpu_torch.obs import report as obs_report
+    from inferno_tpu_torch.obs.recorder import read_artifact
+    from inferno_tpu_torch.parallel import reset_fleet_state
+    from inferno_tpu_torch.planner import __main__ as planner_cli
+    from inferno_tpu_torch.planner.replay import replay_cycle_parity
+    from inferno_tpu_torch.testing.fleet import fleet_fake_prom
+
+    n = RECORD_VARIANTS
+    print(f"15. flight recorder: {n} variants (phase 12's cluster, seed {seed}), on {smi}")
+    os.environ["LOG_LEVEL"] = "warn"
+    rng = np.random.default_rng(seed + 15)
+    cluster, rows0 = _reconcile_fleet(n, seed)
+    rows1, _ = _move_rows(rows0, rng, RECONCILE_MOVE)
+    reset_fleet_state()
+    with tempfile.TemporaryDirectory() as tmp:
+        d = os.path.join(tmp, "recorder")
+        rec = Reconciler(cluster, fleet_fake_prom(rows0), ReconcilerConfig(
+            keep_accelerator=False, flight_recorder_dir=d))
+        if rec.config.compute_backend != "cuda" or rec.recorder is None:
+            raise AssertionError("15: expected backend cuda with a recorder")
+        limited = set()
+        for k, (label, rows) in enumerate((("cold", rows0), ("1% λ", rows1),
+                                           ("limited at 80%", rows1))):
+            if k == 2:
+                chips = sum(r.replicas * (16 if r.accelerator == "v5e-16" else 4)
+                            for r in report.decisions if r.accelerator)
+                cluster.set_configmap("inferno-system", "inferno-autoscaler-config", {
+                    "OPTIMIZER_MODE": "limited",
+                    "TPU_CAPACITY": json.dumps({"v5e": int(0.8 * chips)}),
+                })
+            rec.prom = fleet_fake_prom(rows)
+            report, ms = _timed(rec.run_cycle)
+            if not report.optimization_ok or report.errors:
+                raise AssertionError(f"15: cycle {label}: {report.errors[:3]}")
+            held = sum(r.reason == "capacity_limited" for r in report.decisions)
+            if k == 2:
+                limited = held
+            print(f"  cycle {k + 1} {label}: {ms:.1f} ms; {held} capacity_limited decisions")
+        _, close_ms = _timed(rec.close)
+        dropped = rec.recorder.dropped
+        size = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+        print(f"  close {close_ms:.1f} ms; artifact {size} bytes in {len(os.listdir(d))} "
+              f"files; dropped {dropped}")
+        rt = read_artifact(d)
+        if rt.num_cycles != 3 or rt.warnings or dropped:
+            raise AssertionError(f"15: read {rt.num_cycles} cycles, warnings {rt.warnings}, "
+                                 f"dropped {dropped}")
+        for k in range(rt.num_cycles):
+            parity, pms = _timed(lambda: replay_cycle_parity(rt, k, backend="cuda"))
+            want = (n - limited, limited) if k == 2 else (n, 0)
+            print(f"  replay_cycle_parity(cycle {k + 1}, cuda): match {parity['match']}, "
+                  f"compared {parity['compared']}, skipped {parity['skipped']} "
+                  f"({pms:.1f} ms)")
+            if not parity["match"] or (parity["compared"], parity["skipped"]) != want:
+                raise AssertionError(f"15: cycle {k + 1} parity {parity['mismatches'][:3]}")
+        out = os.path.join(tmp, "trace.json")
+        _, tms = _timed(lambda: planner_cli.main(["--trace", d, "--out", out]))
+        with open(out) as fh:
+            doc = json.load(fh)
+        cov = doc["recorded"]["drift"]["coverage"]
+        sampled = [p["match"] for p in doc["parity_sampled"]]
+        print(f"  planner --trace (backend {doc['fleet']['backend']}): coverage {cov}, sampled "
+              f"parity {sampled} ({tms:.1f} ms)")
+        if cov != 1.0 or not sampled or not all(sampled):
+            raise AssertionError("15: planner --trace drift or parity")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc, rms = _timed(lambda: obs_report.main([d]))
+        print(f"  obs.report: exit {rc}, {len(buf.getvalue().splitlines())} lines "
+              f"({rms:.1f} ms)")
+        if rc != 0:
+            raise AssertionError(f"15: obs.report exited {rc}")
+    reset_fleet_state()
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0, help="seed of phase 12's loads")
@@ -1484,6 +1877,14 @@ def main() -> int:
     _stamp("phase 12 done")
     _phase13()
     _stamp("phase 13 done")
+
+    # 14. the planner; 15. the flight recorder and trace replay
+    _phase14a(smi)
+    _phase14b()
+    _phase14c()
+    _stamp("phase 14 done")
+    _phase15(args.seed, smi)
+    _stamp("phase 15 done")
 
     replaces = "inferno_tpu/ops/pallas_queueing.py:84"
     print(smi)  # again near the end: a reader of the output's tail sees the card

@@ -11,8 +11,15 @@ Ported so far: the batched fleet sizing pass
     System(spec) -> parallel.calculate_fleet(system) -> solver.solve_unlimited(system)
 
 with every stationary solve of the birth-death chain on the hand-written
-CUDA kernel `ops/csrc/stats_kernel.cu` (backend "cuda", the default) or
-its plain torch version (backend "torch", any device).
+CUDA kernel `ops/csrc/stats_kernel.cu` and every sizing bisection on
+`ops/csrc/bisect_kernel.cu` (backend "cuda", the default) or their plain
+torch versions (backend "torch", any device); the incremental and
+event-driven cycle, the limited-mode solve and spot tiers; the reconcile
+loop (`python -m inferno_tpu_torch.controller.main`) with its flight
+recorder; and the offline planner (`python -m inferno_tpu_torch.planner`:
+the batched time-axis solve `parallel.calculate_fleet_batch`, scenario,
+Monte Carlo and spot-storm replays, and `--trace` replays of recorded
+cycles).
 """
 
 __version__ = "0.1.0"

@@ -70,10 +70,10 @@ controller.go:516-582):
                                 docs/performance.md)
   PROMETHEUS_QUERY_TIMEOUT      per-query timeout in seconds (default 30)
   FLIGHT_RECORDER_DIR           directory for the per-cycle flight-recorder
-                                artifact (default unset = recording off).
-                                Not ported yet: any other value fails at
-                                startup (the recorder comes with the
-                                planner slice).
+                                artifact (default unset = recording off;
+                                docs/observability.md). Replay with
+                                `python -m inferno_tpu_torch.planner
+                                --trace`.
   FLIGHT_RECORDER_MAX_MB        artifact retention budget in MB (default 64;
                                 oldest rotation segments deleted beyond it)
   FLIGHT_RECORDER_MAX_AGE_S     segment age before rotation (default 3600)

@@ -26,9 +26,10 @@ imports and these changes:
   backend `cuda` every stationary solve runs on `stats_kernel` and every
   bisection on `bisect_kernel`. The profile corrector's surrogate trains
   on `compute_device` too;
-* the flight recorder is not ported yet (it goes with the planner slice,
-  which reads its artifacts): `flight_recorder_dir` set to anything but
-  "" raises NotImplementedError at config time.
+* the flight recorder (`flight_recorder_dir`, env FLIGHT_RECORDER_DIR)
+  writes the reference's artifact format through the port's
+  `obs/recorder.py`; the port's planner (`--trace`) and either
+  package's `read_artifact` replay it.
 """
 
 from __future__ import annotations
@@ -163,11 +164,6 @@ class ReconcilerConfig:
                 f"compute_backend must be auto|cuda|torch|scalar, "
                 f"got {self.compute_backend!r}"
             )
-        if self.flight_recorder_dir:
-            raise NotImplementedError(
-                "the flight recorder is not ported yet (it comes with the "
-                "planner slice); leave FLIGHT_RECORDER_DIR unset"
-            )
         if self.scale_down_stabilization_s < 0:
             raise ValueError(
                 f"scale_down_stabilization_s must be >= 0, "
@@ -263,8 +259,8 @@ class ReconcilerConfig:
     # durable per-cycle trace capture (env FLIGHT_RECORDER_DIR, default
     # off): every cycle's fleet snapshot + per-variant inputs/decisions
     # land in an append-only, rotated artifact written off the hot path
-    # (obs/recorder.py); replayable via `python -m inferno_tpu.planner
-    # --trace` and scored by `python -m inferno_tpu.obs.report`
+    # (obs/recorder.py); replayable via `python -m inferno_tpu_torch.planner
+    # --trace` and scored by `python -m inferno_tpu_torch.obs.report`
     flight_recorder_dir: str = ""
     flight_recorder_max_mb: float = 64.0  # env FLIGHT_RECORDER_MAX_MB
     flight_recorder_max_age_s: float = 3600.0  # env FLIGHT_RECORDER_MAX_AGE_S
@@ -494,6 +490,28 @@ class Reconciler:
         # variants the rendezvous hash assigns to shard_name; None means
         # unsharded (whole fleet)
         self.shard_map, self.shard_name = shard_from_env()
+        # flight recorder (obs/recorder.py, env FLIGHT_RECORDER_DIR,
+        # default off): per-cycle fleet snapshot + decisions, enqueued in
+        # _finish_cycle and written off the hot path
+        if self.config.flight_recorder_dir:
+            from inferno_tpu_torch.obs.recorder import FlightRecorder, RecorderConfig
+
+            self.recorder = FlightRecorder(RecorderConfig(
+                dir=self.config.flight_recorder_dir,
+                max_mb=self.config.flight_recorder_max_mb,
+                max_age_s=self.config.flight_recorder_max_age_s,
+            ))
+            self.log.info(
+                "flight recorder on: %s (max %.0f MB)",
+                self.config.flight_recorder_dir,
+                self.config.flight_recorder_max_mb,
+            )
+        else:
+            self.recorder = None
+        self._recorder_dropped_seen = 0
+        # the SystemSpec the in-flight cycle's solve consumed, stashed
+        # for the recorder (reconcile thread only; cleared per cycle)
+        self._cycle_spec = None
         # persistent worker pool shared by the collect and apply stages
         # (reconcile_concurrency > 1 only; lazily created, kept across
         # cycles). Tearing a pool down every cycle would kill the worker
@@ -529,11 +547,14 @@ class Reconciler:
         return self._pool
 
     def close(self) -> None:
-        """Release the persistent worker pool (main() on shutdown; safe
-        to call on a never-pooled or already-closed reconciler)."""
+        """Release the persistent worker pool and flush the flight
+        recorder (main() on shutdown; safe to call on a never-pooled or
+        already-closed reconciler)."""
         if self._pool is not None:
             self._pool.shutdown(wait=True)
             self._pool = None
+        if self.recorder is not None:
+            self.recorder.close()
 
     # -- config reading -----------------------------------------------------
 
@@ -1321,6 +1342,11 @@ class Reconciler:
             return
 
         system = System(spec)
+        if self.recorder is not None:
+            # stash for _finish_cycle: the exact spec this cycle's solve
+            # consumes (per-cycle-fresh objects — safe to serialize on
+            # the recorder's writer thread after the cycle completes)
+            self._cycle_spec = spec
         with tracer.span("solve", backend=self.config.compute_backend) as sp:
             t0 = time.perf_counter()
             try:
@@ -1581,7 +1607,8 @@ class Reconciler:
     ) -> None:
         """Seal the cycle's observability outputs: attainment scoring,
         trace, profile document, histogram, decision log events,
-        ring-buffer entries, readiness heartbeat."""
+        ring-buffer entries, flight recorder capture, readiness
+        heartbeat."""
         root = tracer.finish()
         report.trace = root
         self.instruments.observe_cycle(root.duration_ms / 1000.0)
@@ -1641,7 +1668,7 @@ class Reconciler:
             self.attainment_instruments.set_score(rec.namespace, rec.name, score)
         for rec in report.decisions:
             kv(self.log, logging.INFO, "decision", **rec.to_dict())
-        self.traces.append(
+        seq = self.traces.append(
             {
                 "started_at": started_iso,
                 "duration_ms": round(root.duration_ms, 3),
@@ -1651,6 +1678,36 @@ class Reconciler:
                 "decisions": [rec.to_dict() for rec in report.decisions],
             }
         )
+        # flight recorder: enqueue the cycle for durable capture (object
+        # refs only — serialization happens on the writer thread). Cycles
+        # that never built a solver input (config error, zero variants)
+        # have nothing replayable and are skipped.
+        if self.recorder is not None:
+            spec, self._cycle_spec = self._cycle_spec, None
+            if spec is not None and report.decisions:
+                meta = {
+                    "seq": seq,
+                    "ts": tracer.started_at,
+                    "started_at": started_iso,
+                    "duration_ms": round(root.duration_ms, 3),
+                    "interval_seconds": report.interval_seconds,
+                    "optimization_ok": report.optimization_ok,
+                    "errors": len(report.errors),
+                }
+                if report.profile is not None:
+                    # profile column: the cycle's own cost attribution
+                    # rides the artifact — optional on read, so
+                    # pre-profiler recordings stay loadable
+                    meta["profile"] = report.profile
+                self.recorder.record_cycle(spec, report.decisions, meta)
+            new_drops = self.recorder.dropped - self._recorder_dropped_seen
+            if new_drops > 0:
+                self._recorder_dropped_seen = self.recorder.dropped
+                self.instruments.count_recorder_dropped(new_drops)
+                self.log.warning(
+                    "flight recorder dropped %d cycle(s): capture queue "
+                    "full (slow disk?)", new_drops,
+                )
         # stale-controller detection (metrics._probe_routes): readiness
         # fails when the newest heartbeat is older than 3x the interval
         self._heartbeat(report.interval_seconds)

@@ -138,7 +138,7 @@ def build_profile_doc(
     """Fold a finished cycle trace + the profiler's counters into the
     self-describing per-cycle profile document served at
     ``/debug/profile``, recorded by the flight recorder, and diffed by
-    ``python -m inferno_tpu.obs.perfdiff``.
+    ``python -m inferno_tpu_torch.obs.perfdiff``.
 
     Phases are the root's DIRECT children (collect/analyze/solve/actuate
     for a reconcile cycle); repeated names merge by summation so a trace

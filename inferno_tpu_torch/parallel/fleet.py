@@ -27,10 +27,15 @@ loading the kernel library; `jit_execute_ms` the warm dispatches. The
 hooks only observe: decisions are bit-identical with the profiler on and
 off.
 
+The planner's batched time-axis solve (`prepare_fleet_batch`,
+`calculate_fleet_batch`, `FleetBatchPrep`) is ported too: its prep runs
+one full sizing of every bucket through `solve_slots` (the kernels on
+backend "cuda"), and its per-row replica fold, transition penalties and
+segment argmin stay host numpy, as in the reference.
+
 Left out against the reference, each for a later slice of the port:
-sharding lanes over several devices (`shard_map`), the native C++
-backend, and the planner's batched time-axis solve
-(`prepare_fleet_batch`/`calculate_fleet_batch`).
+sharding lanes over several devices (`shard_map`) and the native C++
+backend.
 """
 
 from __future__ import annotations
@@ -46,6 +51,7 @@ from inferno_tpu_torch.config.defaults import (
     ACCEL_PENALTY_FACTOR,
     MAX_QUEUE_TO_BATCH_RATIO,
     env_flag,
+    env_int,
 )
 from inferno_tpu_torch.core.allocation import (
     Allocation,
@@ -911,6 +917,20 @@ def _zero_load_dict(system: System, server) -> dict[str, Allocation] | None:
     return out
 
 
+def _check_backend(backend: str, device) -> torch.device:
+    """Validate `backend` and resolve `device` (`fleet_device`): backend
+    "cuda" needs a CUDA device."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
+    device = fleet_device(device)
+    if backend == "cuda" and device.type != "cuda":
+        raise ValueError(
+            f"backend 'cuda' needs a CUDA device, got {device}; use backend "
+            "'torch' on the CPU"
+        )
+    return device
+
+
 def calculate_fleet(
     system: System,
     backend: str = "cuda",
@@ -950,14 +970,7 @@ def calculate_fleet(
     ignored on the non-incremental path, where the full pass is a
     superset anyway.
     """
-    if backend not in BACKENDS:
-        raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
-    device = fleet_device(device)
-    if backend == "cuda" and device.type != "cuda":
-        raise ValueError(
-            f"backend 'cuda' needs a CUDA device, got {device}; use backend "
-            "'torch' on the CPU"
-        )
+    device = _check_backend(backend, device)
 
     # the candidate table is rebuilt (or cleared) every call — a stale
     # table must never describe lanes of a previous solve
@@ -1145,3 +1158,687 @@ def calculate_fleet(
         seg_server=s_sorted[starts],
     )
     return n
+# -- batched time-axis / seed-ensemble solve (the offline planner's core) -----
+
+
+# the named output surfaces of a batched solve — the `needs` vocabulary
+# of `FleetBatchPrep.solve` (spot columns ride along whenever the System
+# carries a spot tier; they are not individually selectable)
+BATCH_OUTPUTS = ("choice", "replicas", "chips", "cost", "value")
+
+
+@dataclasses.dataclass
+class FleetBatchResult:
+    """Compact solve outputs of `calculate_fleet_batch`: arrays shaped
+    like the `rates` input — ``[T, servers]`` for a single trace,
+    ``[seeds, T, servers]`` for a seed-batched ensemble — with NO
+    per-timestep Allocation/LaneAllocations materialization.
+    ``choice[..., s]`` indexes `accelerators` (the sorted catalog, i.e.
+    the tie-break rank axis); -1 means the server holds no slice at that
+    timestep (no feasible candidate, or the zero-load shortcut with
+    min_replicas == 0)."""
+
+    servers: list[str]  # system server order (the S axis)
+    accelerators: list[str]  # sorted catalog (choice indexes this)
+    choice: np.ndarray  # i32[..., S]
+    replicas: np.ndarray  # i32[..., S]
+    chips: np.ndarray  # i64[..., S]: whole-slice chip demand
+    cost: np.ndarray  # f32[..., S]: cents/hr (spot discount applied)
+    value: np.ndarray  # f64[..., S]: winner transition penalty
+    # spot columns, filled only when the System carries a spot tier
+    # (None otherwise — the extra per-chunk fold is gated on the tier):
+    # replicas of the winner on the spot market, and the load-required
+    # replica count (min-replica floor excluded) the storm evaluator
+    # scores violations against (spot/scenarios.py)
+    spot_replicas: np.ndarray | None = None  # i32[..., S]
+    required: np.ndarray | None = None  # i32[..., S]
+
+    @property
+    def num_steps(self) -> int:
+        return len(self.choice)
+
+
+@dataclasses.dataclass
+class FleetBatchSlab:
+    """One chunk of a streaming batched solve, handed to the `consume`
+    callback of `FleetBatchPrep.solve`. Output arrays are REUSED buffers
+    — valid only for the duration of the callback; copy what must
+    outlive it. Fields not requested via `needs` are None. `row0` is the
+    slab's first row on the flattened (seeds x steps) axis, so a
+    seed-ensemble consumer can map rows back to (seed, timestep) as
+    ``divmod(row0 + i, T)``."""
+
+    row0: int
+    rates: np.ndarray  # f64[rows, S] — the input slab
+    choice: np.ndarray | None  # i32[rows, S]
+    replicas: np.ndarray | None  # i32[rows, S]
+    chips: np.ndarray | None  # i64[rows, S]
+    cost: np.ndarray | None  # f32[rows, S]
+    value: np.ndarray | None  # f64[rows, S]
+    spot_replicas: np.ndarray | None  # i32[rows, S] (spot tier only)
+    required: np.ndarray | None  # i32[rows, S] (spot tier only)
+    # advanced (planner/montecarlo.py): the raw per-lane replica fold,
+    # lane axis = the prep's lane_* columns, BEFORE the zero-load
+    # overlay — combined with `zmask` a consumer can aggregate winner
+    # chips without materializing the [rows, S] outputs
+    lane_reps: np.ndarray | None  # i32[rows, n_lanes]
+    zmask: np.ndarray | None  # bool[rows, S]; None = no zero-shortcut rows
+
+    @property
+    def rows(self) -> int:
+        return len(self.rates)
+
+
+def _batch_chunk_steps(requested: int | None, n_lanes: int) -> int:
+    """Chunk size on the FLATTENED (seeds x steps) row axis: how many
+    rows' [rows, lanes] fold tensors are resident at once.
+    PLANNER_CHUNK_STEPS (env) or the `chunk_steps` argument pin it; the
+    default bounds the slab to ~2 M lane-rows — with the ~8 live
+    fold/argmin temporaries (f64/i64/f32, ~50 bytes per row all told)
+    that's a ~100 MB peak regardless of fleet size OR ensemble seed
+    count (a 200-seed ensemble runs more chunks, never bigger ones)."""
+    if requested is None:
+        requested = env_int("PLANNER_CHUNK_STEPS", 0)
+    if requested > 0:
+        return requested
+    return max(1, 2_000_000 // max(n_lanes, 1))
+
+
+class FleetBatchPrep:
+    """The rate-independent half of the batched time-axis solve,
+    prepared ONCE and replayed over any number of [T, S] or
+    [seeds, T, S] rate tensors.
+
+    `prepare_fleet_batch` runs everything `calculate_fleet_batch` needs
+    that does not depend on the rates: the snapshot/plan derivation and
+    the grid solve on `device` (`solve_slots`: on backend "cuda" both
+    hand-written kernels run, a full sizing of every bucket; the sizing bisection is rate-independent —
+    lambda*, per-replica capacity, and feasibility depend only on
+    profiles and SLO targets), the feasible-lane fold columns, the
+    current-allocation transition basis, and the zero-load shortcut
+    table. `solve` then runs only the per-row work — the f32 replica
+    fold, transition penalties, and the per-server segment argmin — over
+    [rows, lanes] slabs of the flattened (seeds x steps) axis.
+
+    The Monte Carlo driver (planner/montecarlo.py) prepares one context
+    and streams hundreds of seeded traces through ``solve(...,
+    consume=)``, so the whole ensemble pays lane derivation and the grid
+    solve exactly once. A prep describes the System AS PREPARED — it is
+    a per-fleet value like the System, not a live view.
+    """
+
+    def __init__(
+        self,
+        system: System,
+        backend: str = "cuda",
+        device: str | torch.device | None = None,
+    ):
+        device = _check_backend(backend, device)
+        self.system = system
+        self.backend = backend
+        self.device = device
+        names = list(system.servers)
+        self.servers = names  # the S axis
+        self.n_servers = len(names)
+        servers_list = list(system.servers.values())
+        acc_names = sorted(system.accelerators)
+        self.accelerators = acc_names
+        acc_order = {a: i for i, a in enumerate(acc_names)}
+        n_srv = self.n_servers
+
+        # current-allocation columns: the transition-penalty basis,
+        # identical to the per-cycle writeback's
+        cur_rank = np.full(n_srv, -1, np.int64)
+        cur_cost = np.zeros(n_srv, np.float64)
+        cur_reps = np.full(n_srv, -1, np.int64)
+        for i, server in enumerate(servers_list):
+            cur = server.cur_allocation
+            if cur.accelerator:
+                cur_rank[i] = acc_order.get(cur.accelerator, -1)
+            cur_cost[i] = cur.cost
+            cur_reps[i] = cur.num_replicas
+        self._cur_rank, self._cur_cost, self._cur_reps = (
+            cur_rank, cur_cost, cur_reps,
+        )
+        # the zero-load table is built lazily (below) but must share
+        # THIS transition basis: pin the current-allocation objects now
+        # so a prep reused across cycles — where a reconcile replaces
+        # server.cur_allocation — never mixes an old sized basis with a
+        # new zero-shortcut basis in one result
+        self._cur_allocs = [s.cur_allocation for s in servers_list]
+
+        self.spot_on = bool(getattr(system, "spot", None))
+
+        # zero-load shortcut basis: the per-timestep rate replaces the
+        # arrival rate, so any server can hit rate == 0 at some row. The
+        # O(servers x accelerators) closed-form table itself is built
+        # LAZILY by `_ensure_zero_table` the first time a slab actually
+        # contains a zero-rate (or out_tokens == 0) cell — an
+        # all-positive replay never pays the scalar walk.
+        has_load = np.zeros(n_srv, bool)
+        out_zero = np.zeros(n_srv, bool)
+        for i, server in enumerate(servers_list):
+            load = server.load
+            if load is None:
+                continue
+            has_load[i] = True
+            out_zero[i] = load.avg_out_tokens == 0
+        self._has_load, self._out_zero = has_load, out_zero
+        self._any_out_zero = bool(out_zero.any())
+        self._zero_table = None
+
+        # lane structure under a positive placeholder rate: every
+        # replayed server must contribute its token-eligible lanes
+        # regardless of the System's own arrival (rates replace it row
+        # by row). Token stats are untouched, so batch rescale / grids /
+        # eligibility beyond the arrival>0 test are exactly the
+        # per-cycle ones, and the plan + solve memos make re-preparation
+        # on an unchanged fleet free.
+        loaded = [s for s in servers_list if s.load is not None]
+        saved = [s.load.arrival_rate for s in loaded]
+        for s in loaded:
+            s.load.arrival_rate = 60.0  # 1 req/s placeholder
+        try:
+            known = (
+                _get_snapshot().update(system) if _snapshot_enabled() else None
+            )
+            plan = build_fleet(system, _known_version=known)
+            tandem = build_tandem_fleet(system, _known_version=known)
+            if plan is not None or tandem is not None:
+                result, tresult = _solve_or_replay(plan, tandem, device, backend)
+            else:
+                result = tresult = None
+        finally:
+            for s, r in zip(loaded, saved):
+                s.load.arrival_rate = r
+
+        # feasible-lane columns (feasibility is rate-independent),
+        # concatenated across kinds and grouped per server for the
+        # segment argmin
+        cols: list[tuple[np.ndarray, ...]] = []
+        for p, res in ((plan, result), (tandem, tresult)):
+            if p is None or res is None or not p.num_lanes:
+                continue
+            sidx, rank, chips = _lane_orders(system, names, acc_order, p)
+            fe = np.asarray(res.feasible, bool)
+            if not fe.any():
+                continue
+            cols.append((
+                sidx[fe],
+                np.asarray(rank, np.int64)[fe],
+                np.asarray(chips, np.int64)[fe],
+                np.asarray(res.rate_star, np.float32)[fe],
+                np.asarray(p.params.target_tps, np.float32)[fe],
+                np.asarray(p.params.out_tokens, np.float32)[fe],
+                np.asarray(p.params.min_replicas, np.int32)[fe],
+                np.asarray(p.params.cost_per_replica, np.float32)[fe],
+            ))
+        if cols:
+            (
+                l_sidx, l_rank, l_chips, l_rate_star,
+                l_tps, l_out, l_min_reps, l_cpr,
+            ) = (np.concatenate(parts) for parts in zip(*cols))
+            order = np.argsort(l_sidx, kind="stable")
+            l_sidx, l_rank, l_chips = l_sidx[order], l_rank[order], l_chips[order]
+            l_rate_star, l_tps, l_out = (
+                l_rate_star[order], l_tps[order], l_out[order],
+            )
+            l_min_reps, l_cpr = l_min_reps[order], l_cpr[order]
+            self.n_lanes = len(l_sidx)
+            starts = np.flatnonzero(np.r_[True, l_sidx[1:] != l_sidx[:-1]])
+            self._starts = starts
+            self._seg_len = np.diff(np.append(starts, self.n_lanes))
+            self.seg_server = l_sidx[starts]
+            self.lane_server = l_sidx
+            self.lane_rank = l_rank
+            self.lane_chips = l_chips
+            self._l_rate_star, self._l_tps, self._l_out = (
+                l_rate_star, l_tps, l_out,
+            )
+            self._l_min_reps, self._l_cpr = l_min_reps, l_cpr
+            # offered_load's TPS override is a no-op when no lane carries
+            # a TPS target (where(tps>0, ..., total) == total exactly) —
+            # skip the pass entirely in that common case
+            self._tps_bound = bool((l_tps > 0).any())
+            self._l_same = l_rank == cur_rank[l_sidx]
+            self._l_ccost = cur_cost[l_sidx]
+            self._l_creps = cur_reps[l_sidx]
+            self._lane_pos = np.arange(self.n_lanes, dtype=np.int64)
+            self._lane_rank_i32 = l_rank.astype(np.int32)
+            # every server segment holds exactly one feasible lane: the
+            # (value, cost, rank) argmin is that lane — solve() skips
+            # the whole reduceat machinery (a min over one element),
+            # which is the common planner-fleet shape
+            self.all_seg1 = bool(np.all(self._seg_len == 1))
+            if self.spot_on:
+                from inferno_tpu_torch.spot.market import rank_columns
+
+                sc = rank_columns(system, acc_names)
+                self._l_spot = tuple(col[l_rank] for col in sc)
+                self._l_cpr64 = l_cpr.astype(np.float64)
+        else:
+            self.n_lanes = 0
+            self.all_seg1 = False
+            self.lane_server = self.lane_rank = self.lane_chips = None
+            self.seg_server = None
+
+    # -- zero-load shortcut table ---------------------------------------------
+
+    def _ensure_zero_table(self):
+        """Closed-form zero-load columns, built once on first need:
+        mirrors calculate_fleet's shortcut loop + the solve_unlimited
+        (value, cost, accelerator) scan — the live zero shortcut's op
+        order (discount, penalty on the discounted price, premium)."""
+        if self._zero_table is not None:
+            return self._zero_table
+        system = self.system
+        n_srv = self.n_servers
+        acc_order = {a: i for i, a in enumerate(self.accelerators)}
+        zero_choice = np.full(n_srv, -1, np.int32)
+        zero_reps = np.zeros(n_srv, np.int32)
+        zero_chips = np.zeros(n_srv, np.int64)
+        zero_cost = np.zeros(n_srv, np.float32)
+        zero_value = np.zeros(n_srv, np.float64)
+        zero_spot = np.zeros(n_srv, np.int32)
+        for i, server in enumerate(system.servers.values()):
+            if not self._has_load[i]:
+                continue
+            model = system.models.get(server.model_name)
+            svc = system.service_classes.get(server.service_class_name)
+            if (
+                model is None
+                or svc is None
+                or svc.target_for(server.model_name) is None
+            ):
+                continue
+            best = best_key = None
+            for acc in server.candidate_accelerators(system).values():
+                perf = model.perf_data.get(acc.name)
+                if perf is None:
+                    continue
+                alloc = _zero_load_allocation(server, model, acc, perf)
+                _apply_spot(
+                    system, alloc,
+                    acc.cost * model.slices_per_replica(acc.name), 0,
+                )
+                # transition basis = the allocation pinned at __init__,
+                # the same snapshot the sized lanes' cur columns carry
+                alloc.value = (
+                    transition_penalty(self._cur_allocs[i], alloc)
+                    + alloc.spot_premium
+                )
+                key = (alloc.value, alloc.cost, alloc.accelerator)
+                if best is None or key < best_key:
+                    best, best_key = alloc, key
+            if best is not None and best.accelerator:
+                zero_choice[i] = acc_order[best.accelerator]
+                zero_reps[i] = best.num_replicas
+                zero_chips[i] = best.num_replicas * model.slices_per_replica(
+                    best.accelerator
+                ) * system.accelerators[best.accelerator].chips
+                zero_cost[i] = best.cost
+                zero_value[i] = best.value
+                zero_spot[i] = best.spot_replicas
+        self._zero_table = {
+            "choice": zero_choice, "replicas": zero_reps,
+            "chips": zero_chips, "cost": zero_cost, "value": zero_value,
+            "spot_replicas": zero_spot,
+            "required": np.int32(0),
+        }
+        return self._zero_table
+
+    def zero_columns(self) -> dict[str, np.ndarray]:
+        """The per-server zero-load shortcut columns (building them on
+        first call) — the values the overlay writes wherever a row's
+        rate is 0 (or out_tokens == 0). Consumers correcting aggregated
+        slabs (planner/montecarlo.py) read these."""
+        return self._ensure_zero_table()
+
+    # -- the per-slab kernel --------------------------------------------------
+
+    def _solve_chunk(self, r: np.ndarray, out: dict, needs: frozenset):
+        """Solve one [rows, S] rate slab into the prefilled `out` views
+        (only keys in `needs` — plus the spot columns when the tier is
+        on — exist). Returns (lane_reps, zmask) for streaming consumers.
+        The arithmetic and operation order are EXACTLY the per-cycle
+        writeback's (tests/test_planner.py pins serial parity)."""
+        reps = None
+        zmask = None
+        if self.n_lanes:
+            l_sidx = self.lane_server
+            l_rank = self.lane_rank
+            # the replica fold: the identical f32 arithmetic the sizing
+            # programs (fleet_size/tandem_fleet_size) run per lane
+            # (offered_load/fold_replicas shared with the kernels; lanes
+            # in the table always have out_tokens > 0). The divide runs
+            # the f64 loop and casts each quotient to f32 on the way out
+            # — elementwise identical to (r / 60.0).astype(np.float32)
+            # without materializing the f64 intermediate.
+            r32 = np.divide(r, 60.0, out=np.empty(r.shape, np.float32),
+                            casting="unsafe")
+            total = r32[:, l_sidx]  # [rows, L]
+            if self._tps_bound:
+                total = offered_load(total, self._l_tps, self._l_out, np)
+            spot_on = self.spot_on
+            # `total` is a fresh gather; unless the spot pass still
+            # needs it (the required-replica fold), lend it to the fold
+            # as the quotient scratch buffer
+            reps = fold_replicas(
+                total, self._l_rate_star, self._l_min_reps, np,
+                scratch=None if spot_on else total,
+            )
+            # the cost/value chains are skipped only when nothing that
+            # needs them was requested AND the argmin is trivial (every
+            # segment one lane); a multi-lane segment needs the value to
+            # pick its winner no matter which outputs were asked for
+            need_cost = (
+                bool(needs & {"cost", "value"}) or spot_on or not self.all_seg1
+            )
+            need_value = "value" in needs or not self.all_seg1
+            if need_cost:
+                cost32 = reps.astype(np.float32)
+                np.multiply(cost32, self._l_cpr, out=cost32)
+                cost64 = cost32.astype(np.float64)
+                if spot_on:
+                    from inferno_tpu_torch.spot.market import spot_split
+
+                    # the per-cycle writeback's spot pass, over the whole
+                    # chunk: required replicas at min_replicas = 0, the
+                    # split, discount off the cost BEFORE the penalty
+                    required = fold_replicas(
+                        total, self._l_rate_star, np.int32(0), np
+                    )
+                    spot_k, disc, prem, _ = spot_split(
+                        reps, required, self._l_cpr64, *self._l_spot,
+                    )
+                    cost64 = cost64 - disc
+                    cost32 = cost64.astype(np.float32)
+            if need_value:
+                # transition_penalty(), same f64 op order as the writeback
+                value = np.where(
+                    self._l_same & (reps == self._l_creps),
+                    0.0,
+                    np.where(
+                        self._l_same,
+                        cost64 - self._l_ccost,
+                        ACCEL_PENALTY_FACTOR * (self._l_ccost + cost64)
+                        + (cost64 - self._l_ccost),
+                    ),
+                )
+                if spot_on:
+                    value = value + prem
+            seg = self.seg_server
+            if self.all_seg1:
+                # one lane per segment: the winner IS the lane (the
+                # generic argmin below reduces over a single element) —
+                # scatter lane columns straight into the outputs
+                if "choice" in out:
+                    out["choice"][:, seg] = self._lane_rank_i32
+                if "replicas" in out:
+                    out["replicas"][:, seg] = reps
+                if "chips" in out:
+                    out["chips"][:, seg] = (
+                        reps.astype(np.int64) * self.lane_chips
+                    )
+                if "cost" in out:
+                    out["cost"][:, seg] = cost32
+                if "value" in out:
+                    out["value"][:, seg] = value
+                if spot_on:
+                    out["spot_replicas"][:, seg] = spot_k.astype(np.int32)
+                    out["required"][:, seg] = required.astype(np.int32)
+            else:
+                starts, seg_len = self._starts, self._seg_len
+                # per-server lexicographic argmin on (value, cost, rank)
+                # — the (value, cost, accelerator) key of solve_unlimited
+                # and the per-cycle lexsort, over the whole chunk at once
+                m = np.minimum.reduceat(value, starts, axis=1)
+                tie = value == np.repeat(m, seg_len, axis=1)
+                c_m = np.where(tie, cost64, np.inf)
+                m2 = np.minimum.reduceat(c_m, starts, axis=1)
+                tie &= c_m == np.repeat(m2, seg_len, axis=1)
+                r_m = np.where(tie, l_rank, np.int64(2**62))
+                m3 = np.minimum.reduceat(r_m, starts, axis=1)
+                # rank is unique per server segment => exactly one winner
+                win_lane = np.where(
+                    r_m == np.repeat(m3, seg_len, axis=1),
+                    self._lane_pos, np.int64(self.n_lanes),
+                )
+                win = np.minimum.reduceat(win_lane, starts, axis=1)
+                reps_w = np.take_along_axis(reps, win, axis=1)
+                if "choice" in out:
+                    out["choice"][:, seg] = l_rank[win].astype(np.int32)
+                if "replicas" in out:
+                    out["replicas"][:, seg] = reps_w
+                if "chips" in out:
+                    out["chips"][:, seg] = (
+                        reps_w.astype(np.int64) * self.lane_chips[win]
+                    )
+                if "cost" in out:
+                    out["cost"][:, seg] = np.take_along_axis(
+                        cost32, win, axis=1
+                    )
+                if "value" in out:
+                    out["value"][:, seg] = np.take_along_axis(
+                        value, win, axis=1
+                    )
+                if spot_on:
+                    out["spot_replicas"][:, seg] = np.take_along_axis(
+                        spot_k, win, axis=1
+                    ).astype(np.int32)
+                    out["required"][:, seg] = np.take_along_axis(
+                        required, win, axis=1
+                    ).astype(np.int32)
+        # zero-load shortcut overlay: rate == 0 (or out_tokens == 0,
+        # which shortcuts regardless of rate) replaces the sized pick
+        if self._any_out_zero:
+            zmask = (
+                (r == 0.0) | self._out_zero[None, :]
+            ) & self._has_load[None, :]
+            if not zmask.any():
+                zmask = None
+        else:
+            zmask = r == 0.0
+            if zmask.any():
+                zmask &= self._has_load[None, :]
+                if not zmask.any():
+                    zmask = None
+            else:
+                zmask = None
+        if zmask is not None:
+            table = self._ensure_zero_table()
+            for key, view in out.items():
+                zcol = table[key]
+                np.copyto(
+                    view, np.broadcast_to(zcol, view.shape), where=zmask
+                )
+        return reps, zmask
+
+    # -- the driver loop ------------------------------------------------------
+
+    def solve(
+        self,
+        rates,
+        chunk_steps: int | None = None,
+        consume=None,
+        needs=None,
+        validate: bool = True,
+    ) -> FleetBatchResult | None:
+        """Solve a rate tensor against the prepared fleet.
+
+        `rates` is [T, S] or [seeds, T, S] in req/min, S = the system's
+        server order; leading axes are flattened into one row axis and
+        chunked by `chunk_steps` / PLANNER_CHUNK_STEPS (chunk placement
+        never changes results — a seed boundary is just another row).
+
+        Default (materializing) mode returns a `FleetBatchResult` whose
+        arrays mirror the `rates` shape. With `consume`, nothing is
+        materialized: the callback receives one `FleetBatchSlab` per
+        chunk (reused buffers) and solve returns None — peak memory is
+        the slab, regardless of seed count. `needs` (an iterable of
+        BATCH_OUTPUTS names, consume mode only) trims which output
+        surfaces are computed: a demand-envelope consumer that only
+        needs `chips` + `cost` skips the f64 value chain entirely on
+        single-lane fleets. `validate=False` skips the finiteness scan —
+        for drivers whose generators already guarantee finite, >= 0
+        rates (planner/scenarios.py clamps at build time)."""
+        rates = np.asarray(rates, np.float64)
+        if rates.ndim not in (2, 3) or rates.shape[-1] != self.n_servers:
+            raise ValueError(
+                f"rates must be [T, {self.n_servers}] or "
+                f"[seeds, T, {self.n_servers}] (system server order), "
+                f"got {rates.shape}"
+            )
+        if validate and (
+            not np.all(np.isfinite(rates)) or (rates < 0).any()
+        ):
+            raise ValueError("rates must be finite and >= 0")
+        lead = rates.shape[:-1]
+        flat = rates.reshape(-1, self.n_servers)
+        n_rows = len(flat)
+        if needs is not None and consume is None:
+            # a materialized FleetBatchResult always carries every
+            # surface; silently dropping the trim would hide both the
+            # intent and any typo in the names
+            raise ValueError("needs= trims streaming outputs; it requires "
+                             "consume=")
+        if needs is None:
+            needs = frozenset(BATCH_OUTPUTS)
+        else:
+            needs = frozenset(needs)
+            unknown = needs - set(BATCH_OUTPUTS)
+            if unknown:
+                raise ValueError(
+                    f"unknown batch outputs {sorted(unknown)}; "
+                    f"available: {BATCH_OUTPUTS}"
+                )
+        chunk = _batch_chunk_steps(chunk_steps, self.n_lanes)
+        n_srv = self.n_servers
+        spot_on = self.spot_on
+
+        fills = {
+            "choice": (np.int32, -1),
+            "replicas": (np.int32, 0),
+            "chips": (np.int64, 0),
+            "cost": (np.float32, 0),
+            "value": (np.float64, 0),
+            "spot_replicas": (np.int32, 0),
+            "required": (np.int32, 0),
+        }
+        keys = [k for k in BATCH_OUTPUTS if k in needs]
+        if spot_on:
+            keys += ["spot_replicas", "required"]
+
+        if consume is None:
+            full = {
+                key: np.full((n_rows, n_srv), fills[key][1], fills[key][0])
+                for key in keys
+            }
+            for t0 in range(0, n_rows, chunk):
+                r = flat[t0 : t0 + chunk]
+                views = {key: arr[t0 : t0 + len(r)] for key, arr in full.items()}
+                self._solve_chunk(r, views, needs)
+
+            def shaped(key):
+                arr = full.get(key)
+                return None if arr is None else arr.reshape(lead + (n_srv,))
+
+            return FleetBatchResult(
+                servers=self.servers,
+                accelerators=self.accelerators,
+                choice=shaped("choice"),
+                replicas=shaped("replicas"),
+                chips=shaped("chips"),
+                cost=shaped("cost"),
+                value=shaped("value"),
+                spot_replicas=shaped("spot_replicas"),
+                required=shaped("required"),
+            )
+
+        bufs = {
+            key: np.empty((min(chunk, max(n_rows, 1)), n_srv), fills[key][0])
+            for key in keys
+        }
+        for t0 in range(0, n_rows, chunk):
+            r = flat[t0 : t0 + chunk]
+            rows = len(r)
+            views = {}
+            for key, buf in bufs.items():
+                view = buf[:rows]
+                view.fill(fills[key][1])
+                views[key] = view
+            lane_reps, zmask = self._solve_chunk(r, views, needs)
+            consume(FleetBatchSlab(
+                row0=t0,
+                rates=r,
+                choice=views.get("choice"),
+                replicas=views.get("replicas"),
+                chips=views.get("chips"),
+                cost=views.get("cost"),
+                value=views.get("value"),
+                spot_replicas=views.get("spot_replicas"),
+                required=views.get("required"),
+                lane_reps=lane_reps,
+                zmask=zmask,
+            ))
+        return None
+
+
+def prepare_fleet_batch(
+    system: System,
+    backend: str = "cuda",
+    device: str | torch.device | None = None,
+) -> FleetBatchPrep:
+    """Prepare the rate-independent context of the batched solve ONCE —
+    snapshot/plan derivation, the grid solve on `device`, fold columns, the
+    zero-load table — for replay over many rate tensors (the Monte Carlo
+    ensemble driver's entry point; `calculate_fleet_batch` is this plus
+    one `solve`)."""
+    return FleetBatchPrep(system, backend=backend, device=device)
+
+
+def calculate_fleet_batch(
+    system: System,
+    rates,
+    backend: str = "cuda",
+    device: str | torch.device | None = None,
+    chunk_steps: int | None = None,
+) -> FleetBatchResult:
+    """Solve T timesteps (or a whole [seeds, T, S] seeded ensemble) of
+    per-server arrival rates in one pass: the batched equivalent of the
+    serial loop
+
+        for t in range(T):
+            <set server.load.arrival_rate = rates[t]>; calculate_fleet(...)
+            solve_unlimited(...)
+
+    with bit-identical choices, replica counts, and chip demand
+    (tests/test_planner.py pins T=1 and multi-T parity;
+    tests/test_montecarlo.py pins the seed axis), at a fraction of the
+    cost. `rates` is [T, S] — or [seeds, T, S], solved as one flattened
+    row axis — in req/min, S = the system's server order; per-row rates
+    REPLACE each server's arrival rate, token mix and everything
+    structural stay as carried by the System.
+
+    Why this is cheap: the snapshot's structure signatures are
+    load-independent, so the replay pays lane derivation and plan
+    packing exactly ONCE; and the sizing bisection itself is
+    rate-independent (lambda*, per-replica capacity, and feasibility
+    depend only on profiles and SLO targets), so the grid solve on the
+    card is hoisted out of the time AND seed axes entirely
+    (`prepare_fleet_batch` exposes the prepared context for drivers that
+    replay many tensors). Per row only the replica fold
+    (`ops.queueing.fold_replicas` with `xp=np`, the exact f32 arithmetic
+    of the sizing program), the f64 transition penalties, and the per-server
+    (value, cost, rank) argmin run — vectorized numpy over
+    [rows, lanes] slabs (`chunk_steps` / PLANNER_CHUNK_STEPS bounds the
+    resident slab on the flattened axis; chunk placement never changes
+    results). Zero-rate rows take the closed-form zero-load shortcut,
+    built lazily once per prep.
+
+    `backend`/`device` are `calculate_fleet`'s: "cuda" (the default) on
+    the card, or "torch" on any device (`device="cpu"` on a machine
+    without one); `device=None` without CUDA raises.
+    """
+    prep = prepare_fleet_batch(system, backend=backend, device=device)
+    return prep.solve(rates, chunk_steps=chunk_steps)

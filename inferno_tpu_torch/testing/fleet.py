@@ -13,7 +13,7 @@ emulator slice.
 edge lanes — aggregated and tandem (disagg) shapes, zero-load variants,
 pinned (keep_accelerator) variants, infeasible SLO targets.
 `assert_same_decisions` holds two sized-and-solved Systems to the port's
-comparison rule.
+comparison rule, `assert_same_batch` two batched time-axis results.
 """
 
 from __future__ import annotations
@@ -376,3 +376,46 @@ def assert_same_decisions(a, b, rtol: float = 1e-5) -> int:
                     name, acc, field, va, vb
                 )
     return boundary
+
+
+def assert_same_batch(prep_a, res_a, prep_b, res_b) -> int:
+    """Hold two results of the batched time-axis solve of one fleet
+    (`FleetBatchPrep` + its `FleetBatchResult`, from either package) to
+    the port's comparison rule, cell by cell:
+
+    * the chosen accelerator exactly;
+    * replicas exactly, except ±1 where the chosen lane's rate_star agrees
+      within 1e-4 relative (a ceil boundary);
+    * chips, cost, value and the spot columns exactly off those cells:
+      both sides compute them in the same f32/f64 host arithmetic from
+      equal replica counts.
+
+    Raises AssertionError naming the first diverging cell; returns the
+    number of boundary cells it accepted."""
+    import numpy as np
+
+    if res_a.servers != res_b.servers or res_a.accelerators != res_b.accelerators:
+        raise AssertionError("different server or accelerator axes")
+    if not np.array_equal(res_a.choice, res_b.choice):
+        raise AssertionError(f"choices differ in {int((res_a.choice != res_b.choice).sum())} cells")
+    n_srv = len(res_a.servers)
+    choice = res_a.choice.reshape(-1, n_srv)
+    diff = (res_a.replicas.astype(np.int64) - res_b.replicas).reshape(-1, n_srv)
+    for row, s in zip(*np.nonzero(diff)):
+        stars = []
+        for prep in (prep_a, prep_b):
+            hit = np.flatnonzero((prep.lane_server == s) & (prep.lane_rank == choice[row, s]))
+            stars.append(float(prep._l_rate_star[hit[0]]))
+        close = abs(stars[0] - stars[1]) <= 1e-4 * max(abs(stars[0]), abs(stars[1]))
+        if abs(diff[row, s]) != 1 or not close:
+            raise AssertionError(f"row {row} server {s}: replicas differ by {diff[row, s]} "
+                                 f"at rate_star {stars}")
+    keep = diff == 0
+    for field in ("chips", "cost", "value", "spot_replicas", "required"):
+        a, b = getattr(res_a, field), getattr(res_b, field)
+        if (a is None) != (b is None):
+            raise AssertionError(f"{field} present on one side only")
+        if a is not None and not np.array_equal(a.reshape(-1, n_srv)[keep],
+                                                b.reshape(-1, n_srv)[keep]):
+            raise AssertionError(f"{field} differs off the boundary cells")
+    return int((~keep).sum())

@@ -2,8 +2,9 @@
 chip_smoke.py, imports jax, flax, optax or the JAX package inferno_tpu.
 
 Checked twice: statically (an AST scan of every import statement) and
-dynamically (subprocesses in which those imports are blocked size a fleet
-and run three reconcile cycles through the port on the CPU). The scan
+dynamically (subprocesses in which those imports are blocked size a fleet,
+run three reconcile cycles, and run the planner and a recorded `--trace`
+replay through the port on the CPU). The scan
 also holds every import to what the card's installation has: the
 standard library, torch, numpy, PyYAML, triton, and the port itself.
 """
@@ -124,6 +125,56 @@ def test_port_reconciles_with_jax_blocked():
         assert not any(m.split(".")[0] in ("jax", "inferno_tpu")
                        for m, v in sys.modules.items() if v is not None)
         print("ok", applied)
+    """, extra_env={"LOG_LEVEL": "warn"})
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
+
+
+def test_planner_runs_with_jax_blocked(tmp_path):
+    """`python -m inferno_tpu_torch.planner` on the CPU (a small fleet,
+    one scenario, a few seeds), then a reconcile recorded by the port's
+    flight recorder and replayed by `--trace`, all with jax blocked."""
+    proc = _run_blocked(f"""
+        import json, runpy
+        from inferno_tpu_torch.controller import Reconciler, ReconcilerConfig
+        from inferno_tpu_torch.testing.fleet import (
+            FLEET_NS, fleet_cluster, fleet_fake_prom, fleet_model,
+        )
+
+        def planner(*args):
+            sys.argv = ["inferno_tpu_torch.planner", *args]
+            try:
+                runpy.run_module("inferno_tpu_torch.planner", run_name="__main__")
+            except SystemExit as e:
+                assert e.code in (0, None), e.code
+
+        out = {str(tmp_path)!r} + "/mc.json"
+        planner("--variants", "8", "--steps", "6", "--shapes", "1",
+                "--scenarios", "flash_crowd", "--seeds", "3",
+                "--backend", "torch", "--device", "cpu", "--out", out)
+        mc = json.load(open(out))
+        assert mc["seeds"] == 3 and mc["scenarios"][0]["scenario"] == "flash_crowd"
+
+        rec_dir = {str(tmp_path)!r} + "/rec"
+        rows = {{(fleet_model(i), FLEET_NS): {{
+            "running": 3.0, "arrival_rps": 20.0 + i, "in_tokens": 128.0,
+            "out_tokens": 128.0, "ttft_s": 0.05, "itl_s": 0.02,
+            "max_batch": 64.0}} for i in range(5)}}
+        rec = Reconciler(fleet_cluster(5), fleet_fake_prom(rows), ReconcilerConfig(
+            compute_backend="torch", compute_device="cpu",
+            flight_recorder_dir=rec_dir))
+        for _ in range(2):
+            assert not rec.run_cycle().errors
+        rec.close()
+        out = {str(tmp_path)!r} + "/trace.json"
+        planner("--trace", rec_dir, "--backend", "torch", "--device", "cpu",
+                "--out", out)
+        doc = json.load(open(out))
+        assert doc["recorded"]["drift"]["coverage"] == 1.0
+        assert all(p["match"] for p in doc["parity_sampled"]), doc["parity_sampled"]
+        assert not any(m.split(".")[0] in ("jax", "inferno_tpu")
+                       for m, v in sys.modules.items() if v is not None)
+        print("ok", len(doc["parity_sampled"]))
     """, extra_env={"LOG_LEVEL": "warn"})
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok")

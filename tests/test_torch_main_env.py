@@ -2,7 +2,9 @@
 documented environment variable reaches its `ReconcilerConfig` field with
 the reference's default, `COMPUTE_DEVICE` is the port's one addition,
 `auto` without a CUDA card raises instead of falling back to the CPU, and
-the reference-only backends are refused."""
+the reference-only backends are refused. FLIGHT_RECORDER_DIR maps to a
+working recorder, and the planner's backend resolution follows the same
+rule: auto is the card or an error."""
 
 from __future__ import annotations
 
@@ -96,9 +98,49 @@ def test_unknown_backend_is_rejected():
 
 
 def test_flight_recorder_is_not_ported_yet(clean_env, tmp_path):
-    clean_env.setenv("FLIGHT_RECORDER_DIR", str(tmp_path))
-    with pytest.raises(NotImplementedError, match="flight recorder"):
-        p_main.reconciler_config_from_env()
+    """The recorder was once refused here; it is ported now, so
+    FLIGHT_RECORDER_DIR maps to a working recorder: the env builds a
+    config, the Reconciler records every cycle, and close() flushes."""
+    from inferno_tpu_torch.obs.recorder import read_artifact
+
+    clean_env.setenv("FLIGHT_RECORDER_DIR", str(tmp_path / "rec"))
+    clean_env.setenv("COMPUTE_BACKEND", "torch")
+    clean_env.setenv("COMPUTE_DEVICE", "cpu")
+    cfg = p_main.reconciler_config_from_env()
+    assert cfg.flight_recorder_dir == str(tmp_path / "rec")
+    rows = {(fleet_model(i), FLEET_NS): {"running": 3.0, "arrival_rps": 4.0,
+            "in_tokens": 128.0, "out_tokens": 128.0, "ttft_s": 0.05,
+            "itl_s": 0.02} for i in range(2)}
+    rec = Reconciler(fleet_cluster(2), fleet_fake_prom(rows), cfg)
+    assert rec.recorder is not None
+    for _ in range(2):
+        assert rec.run_cycle().errors == []
+    rec.close()
+    recorded = read_artifact(str(tmp_path / "rec"))
+    assert recorded.num_cycles == 2 and recorded.warnings == []
+
+
+def test_planner_auto_without_cuda_raises(monkeypatch):
+    """The planner's auto backend (flag or PLANNER_BACKEND=auto) needs a
+    card and names the CPU route without one; nothing falls back."""
+    from inferno_tpu_torch.planner.__main__ import _resolve_backend, main
+
+    monkeypatch.setattr("torch.cuda.is_available", lambda: False)
+    for env in ("", "auto"):
+        monkeypatch.setenv("PLANNER_BACKEND", env)
+        with pytest.raises(SystemExit, match="--backend torch --device cpu"):
+            _resolve_backend("auto")
+        with pytest.raises(SystemExit, match="--backend torch --device cpu"):
+            main(["--variants", "4", "--steps", "2"])
+
+
+@pytest.mark.parametrize("env", ["jax", "tpu", "gpu"])
+def test_unknown_planner_backend_fails_fast(monkeypatch, env):
+    from inferno_tpu_torch.planner.__main__ import main
+
+    monkeypatch.setenv("PLANNER_BACKEND", env)
+    with pytest.raises(SystemExit, match="PLANNER_BACKEND"):
+        main(["--variants", "4", "--steps", "2"])
 
 
 def test_auto_without_cuda_raises_naming_the_cpu_choice(monkeypatch):
