@@ -110,6 +110,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    matches every cycle (all variants compared, the limited cycle's
    capacity_limited ones skipped and counted); `planner --trace` reports
    coverage 1.0 and every sampled parity matching; `obs.report` exits 0.
+16. the fleet twin with its step cost on the card: (a) the reference's
+   twin bench configuration (1,000 engines of the default EngineProfile,
+   ramp_burst at 800 req/s for 92 s, seed 0, barriers every 2,000 ms)
+   through TwinPlant on its default backend (torch, device None = the
+   card), one cold and three warm passes, in turns with the numpy plant,
+   after the step cost alone on seeded random profiles against numpy:
+   results bit-identical to the numpy plant and to the serial oracle
+   (scalar engines, sync-stepped), step-cost evaluations on the card
+   equal to rounds (none on numpy); the warm medians, the oracle's time,
+   the speedup over it (printed, not gated) and the device's busy time in
+   one profiled torch pass; (b) the twin CLI's headline (`--policies
+   reactive,predictive --engines 1000`) on the card, its JSON report equal
+   to the same CLI's on `--backend numpy`; (c) `--engines 200 --kills
+   30:10,45:6`, and `--replay` of phase 15's artifact (its first variant,
+   64 engines), each equal between the two backends;
+17. one closed emulated loop: an EmulatedEngine under 40 req/s, scraped by
+   MiniProm, reconciled by the port's Reconciler on backend cuda with
+   direct scaling: the loaded cycle scales the deployment out, the idle
+   cycle back to 1, with stats_kernel launched in the loop.
 
 The card's name and power limit (nvidia-smi) are printed first and again
 before the kernels line.
@@ -130,6 +149,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -1553,11 +1573,11 @@ def _phase14c():
     reset_fleet_state()
 
 
-def _phase15(seed, smi):
-    """15. the flight recorder on the card and the replay of what it recorded."""
+def _phase15(seed, smi, tmp):
+    """15. the flight recorder on the card and the replay of what it
+    recorded; the artifact stays in `tmp`/recorder for phase 16."""
     import contextlib
     import io
-    import tempfile
 
     import numpy as np
 
@@ -1576,64 +1596,312 @@ def _phase15(seed, smi):
     cluster, rows0 = _reconcile_fleet(n, seed)
     rows1, _ = _move_rows(rows0, rng, RECONCILE_MOVE)
     reset_fleet_state()
+    d = os.path.join(tmp, "recorder")
+    rec = Reconciler(cluster, fleet_fake_prom(rows0), ReconcilerConfig(
+        keep_accelerator=False, flight_recorder_dir=d))
+    if rec.config.compute_backend != "cuda" or rec.recorder is None:
+        raise AssertionError("15: expected backend cuda with a recorder")
+    limited = set()
+    for k, (label, rows) in enumerate((("cold", rows0), ("1% λ", rows1),
+                                       ("limited at 80%", rows1))):
+        if k == 2:
+            chips = sum(r.replicas * (16 if r.accelerator == "v5e-16" else 4)
+                        for r in report.decisions if r.accelerator)
+            cluster.set_configmap("inferno-system", "inferno-autoscaler-config", {
+                "OPTIMIZER_MODE": "limited",
+                "TPU_CAPACITY": json.dumps({"v5e": int(0.8 * chips)}),
+            })
+        rec.prom = fleet_fake_prom(rows)
+        report, ms = _timed(rec.run_cycle)
+        if not report.optimization_ok or report.errors:
+            raise AssertionError(f"15: cycle {label}: {report.errors[:3]}")
+        held = sum(r.reason == "capacity_limited" for r in report.decisions)
+        if k == 2:
+            limited = held
+        print(f"  cycle {k + 1} {label}: {ms:.1f} ms; {held} capacity_limited decisions")
+    _, close_ms = _timed(rec.close)
+    dropped = rec.recorder.dropped
+    size = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+    print(f"  close {close_ms:.1f} ms; artifact {size} bytes in {len(os.listdir(d))} "
+          f"files; dropped {dropped}")
+    rt = read_artifact(d)
+    if rt.num_cycles != 3 or rt.warnings or dropped:
+        raise AssertionError(f"15: read {rt.num_cycles} cycles, warnings {rt.warnings}, "
+                             f"dropped {dropped}")
+    for k in range(rt.num_cycles):
+        parity, pms = _timed(lambda: replay_cycle_parity(rt, k, backend="cuda"))
+        want = (n - limited, limited) if k == 2 else (n, 0)
+        print(f"  replay_cycle_parity(cycle {k + 1}, cuda): match {parity['match']}, "
+              f"compared {parity['compared']}, skipped {parity['skipped']} "
+              f"({pms:.1f} ms)")
+        if not parity["match"] or (parity["compared"], parity["skipped"]) != want:
+            raise AssertionError(f"15: cycle {k + 1} parity {parity['mismatches'][:3]}")
+    out = os.path.join(tmp, "trace.json")
+    _, tms = _timed(lambda: planner_cli.main(["--trace", d, "--out", out]))
+    with open(out) as fh:
+        doc = json.load(fh)
+    cov = doc["recorded"]["drift"]["coverage"]
+    sampled = [p["match"] for p in doc["parity_sampled"]]
+    print(f"  planner --trace (backend {doc['fleet']['backend']}): coverage {cov}, sampled "
+          f"parity {sampled} ({tms:.1f} ms)")
+    if cov != 1.0 or not sampled or not all(sampled):
+        raise AssertionError("15: planner --trace drift or parity")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc, rms = _timed(lambda: obs_report.main([d]))
+    print(f"  obs.report: exit {rc}, {len(buf.getvalue().splitlines())} lines "
+          f"({rms:.1f} ms)")
+    if rc != 0:
+        raise AssertionError(f"15: obs.report exited {rc}")
+    reset_fleet_state()
+
+
+TWIN_ENGINES = 1000
+TWIN_RATE_RPS = 800.0
+TWIN_DURATION_S = 92.0
+TWIN_BARRIER_MS = 2000.0
+TWIN_WARM = 3
+
+
+def _twin_cli(argv):
+    """The port's twin CLI with `argv`; its JSON report as written."""
+    from inferno_tpu_torch.twin.__main__ import main as twin_main
+
     with tempfile.TemporaryDirectory() as tmp:
-        d = os.path.join(tmp, "recorder")
-        rec = Reconciler(cluster, fleet_fake_prom(rows0), ReconcilerConfig(
-            keep_accelerator=False, flight_recorder_dir=d))
-        if rec.config.compute_backend != "cuda" or rec.recorder is None:
-            raise AssertionError("15: expected backend cuda with a recorder")
-        limited = set()
-        for k, (label, rows) in enumerate((("cold", rows0), ("1% λ", rows1),
-                                           ("limited at 80%", rows1))):
-            if k == 2:
-                chips = sum(r.replicas * (16 if r.accelerator == "v5e-16" else 4)
-                            for r in report.decisions if r.accelerator)
-                cluster.set_configmap("inferno-system", "inferno-autoscaler-config", {
-                    "OPTIMIZER_MODE": "limited",
-                    "TPU_CAPACITY": json.dumps({"v5e": int(0.8 * chips)}),
-                })
-            rec.prom = fleet_fake_prom(rows)
-            report, ms = _timed(rec.run_cycle)
-            if not report.optimization_ok or report.errors:
-                raise AssertionError(f"15: cycle {label}: {report.errors[:3]}")
-            held = sum(r.reason == "capacity_limited" for r in report.decisions)
-            if k == 2:
-                limited = held
-            print(f"  cycle {k + 1} {label}: {ms:.1f} ms; {held} capacity_limited decisions")
-        _, close_ms = _timed(rec.close)
-        dropped = rec.recorder.dropped
-        size = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
-        print(f"  close {close_ms:.1f} ms; artifact {size} bytes in {len(os.listdir(d))} "
-              f"files; dropped {dropped}")
-        rt = read_artifact(d)
-        if rt.num_cycles != 3 or rt.warnings or dropped:
-            raise AssertionError(f"15: read {rt.num_cycles} cycles, warnings {rt.warnings}, "
-                                 f"dropped {dropped}")
-        for k in range(rt.num_cycles):
-            parity, pms = _timed(lambda: replay_cycle_parity(rt, k, backend="cuda"))
-            want = (n - limited, limited) if k == 2 else (n, 0)
-            print(f"  replay_cycle_parity(cycle {k + 1}, cuda): match {parity['match']}, "
-                  f"compared {parity['compared']}, skipped {parity['skipped']} "
-                  f"({pms:.1f} ms)")
-            if not parity["match"] or (parity["compared"], parity["skipped"]) != want:
-                raise AssertionError(f"15: cycle {k + 1} parity {parity['mismatches'][:3]}")
-        out = os.path.join(tmp, "trace.json")
-        _, tms = _timed(lambda: planner_cli.main(["--trace", d, "--out", out]))
-        with open(out) as fh:
-            doc = json.load(fh)
-        cov = doc["recorded"]["drift"]["coverage"]
-        sampled = [p["match"] for p in doc["parity_sampled"]]
-        print(f"  planner --trace (backend {doc['fleet']['backend']}): coverage {cov}, sampled "
-              f"parity {sampled} ({tms:.1f} ms)")
-        if cov != 1.0 or not sampled or not all(sampled):
-            raise AssertionError("15: planner --trace drift or parity")
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            rc, rms = _timed(lambda: obs_report.main([d]))
-        print(f"  obs.report: exit {rc}, {len(buf.getvalue().splitlines())} lines "
-              f"({rms:.1f} ms)")
+        out = os.path.join(tmp, "report.json")
+        rc = twin_main([*argv, "--out", out])
         if rc != 0:
-            raise AssertionError(f"15: obs.report exited {rc}")
+            raise AssertionError(f"16: twin CLI {argv} exited {rc}")
+        with open(out) as fh:
+            return fh.read()
+
+
+def _phase16(smi, tmp):
+    """16. the fleet twin with its step cost on the card."""
+    import numpy as np
+
+    from inferno_tpu_torch.emulator.engine import EngineProfile
+    from inferno_tpu_torch.obs.recorder import read_artifact
+    from inferno_tpu_torch.twin import (
+        TwinPlant,
+        build_trace,
+        parity_diff,
+        route_round_robin,
+        run_serial_oracle,
+    )
+    from inferno_tpu_torch.twin import plant as twin_plant
+
+    evals = twin_plant.STEP_COST_EVALS
+    E = TWIN_ENGINES
+    profile = EngineProfile()
+    trace = build_trace("ramp_burst", TWIN_RATE_RPS, TWIN_DURATION_S, 0)
+    end_ms = trace.duration_s * 1000.0
+    eng = route_round_robin(trace, E)
+    edges = list(np.arange(TWIN_BARRIER_MS, end_ms, TWIN_BARRIER_MS)) + [end_ms]
+    print(f"16. fleet twin: {E} engines, ramp_burst {TWIN_RATE_RPS:g} req/s for "
+          f"{TWIN_DURATION_S:g} s (seed 0, {trace.requests} requests), barriers every "
+          f"{TWIN_BARRIER_MS:g} ms, on {smi}")
+
+    # the step cost alone on seeded random profiles (awkward mantissas: a
+    # regrouped sum would show in the last bit) against numpy
+    rng = np.random.default_rng(16)
+    profiles = [EngineProfile(
+        alpha=float(rng.uniform(5, 40)), beta=float(rng.uniform(0.05, 1.5)),
+        beta2=float(rng.uniform(0, 0.02)), gamma=float(rng.uniform(1, 30)),
+        delta=float(rng.uniform(0.001, 0.2)), max_batch=512) for _ in range(E)]
+    host, card = TwinPlant(profiles, E, backend="numpy"), TwinPlant(profiles, E)
+    values = differ = 0
+    for _ in range(50):
+        idx = np.sort(rng.choice(E, size=int(rng.integers(1, E + 1)), replace=False))
+        batch = rng.integers(1, 513, size=len(idx))
+        new_count = np.minimum(rng.integers(0, 4, size=len(idx)), batch)
+        new_count[::5] = batch[::5]
+        new_in_sum = (new_count * rng.integers(1, 900, size=len(idx))).astype(np.float64)
+        args = (idx, batch.astype(np.float64), new_count, new_in_sum, batch)
+        want, got = host._step_cost_vec(*args), card._step_cost_vec(*args)
+        values += len(idx)
+        differ += int((got.view(np.int64) != want.view(np.int64)).sum())
+    print(f"  (a) step cost on the card vs numpy, {E} random profiles, 50 random rounds: "
+          f"{differ} of {values} values differ in a bit")
+    if differ:
+        raise AssertionError("16: the card's step cost is not bit-equal to numpy's")
+
+    def run(backend):
+        t0 = time.perf_counter()
+        plant = (TwinPlant(profile, E) if backend == "torch"
+                 else TwinPlant(profile, E, backend="numpy"))
+        plant.inject_bulk(eng, trace.arr_ms, trace.in_tokens, trace.out_tokens)
+        rounds = sum(plant.advance_to(t) for t in edges)
+        plant.drain_completions()
+        _sync()
+        return plant, rounds, (time.perf_counter() - t0) * 1e3
+
+    # (a) cold, counted; then warm passes, the backends in turns
+    evals.update(torch=0, numpy=0)
+    plant, rounds, cold_torch = run("torch")
+    counted = dict(evals)
+    if plant.backend != "torch" or plant.device.type != "cuda":
+        raise AssertionError(f"16: default plant on {plant.backend}/{plant.device}")
+    if counted != {"torch": rounds, "numpy": 0}:
+        raise AssertionError(f"16: step-cost evaluations {counted} for {rounds} rounds")
+    ref, ref_rounds, cold_numpy = run("numpy")
+    warm = {"torch": [], "numpy": []}
+    for rep in range(TWIN_WARM):
+        for backend in (("numpy", "torch") if rep % 2 == 0 else ("torch", "numpy")):
+            p, r, ms = run(backend)
+            if r != rounds or parity_diff(p.results(), plant.results()):
+                raise AssertionError(f"16: warm {backend} pass differs")
+            warm[backend].append(ms)
+    med = {b: statistics.median(v) for b, v in warm.items()}
+    print(f"  (a) step-cost evaluations on the card {counted['torch']} = rounds {rounds} "
+          f"(numpy 0); {plant.report()['completed']} completed, events "
+          f"{plant.events_total}")
+    for backend, cold in (("torch", cold_torch), ("numpy", cold_numpy)):
+        print(f"  (a) plant {backend}: cold {cold:.1f} ms, warm median {med[backend]:.1f} ms "
+              f"(passes {', '.join(f'{t:.1f}' for t in warm[backend])}), "
+              f"{1e3 * med[backend] / rounds:.1f} us a round")
+    diffs = parity_diff(plant.results(), ref.results())
+    if diffs or ref_rounds != rounds or plant.report() != ref.report():
+        raise AssertionError(f"16: torch plant vs numpy plant: {diffs[:3]}")
+    oracle, oracle_ms = _timed(lambda: run_serial_oracle(
+        profile, eng, trace.arr_ms, trace.in_tokens, trace.out_tokens, end_ms,
+        barrier_ms=TWIN_BARRIER_MS))
+    diffs = parity_diff(plant.results(), oracle)
+    if diffs:
+        raise AssertionError(f"16: torch plant vs serial oracle: {diffs[:3]}")
+    busy = _profiled_device_ms(lambda: run("torch"), 1)
+    print(f"  (a) serial oracle {oracle_ms:.1f} ms; speedup over it: torch "
+          f"{oracle_ms / min(warm['torch']):.2f}x, numpy "
+          f"{oracle_ms / min(warm['numpy']):.2f}x (best warm passes); bit-identical to "
+          f"the numpy plant and to the oracle")
+    print(f"  (a) device busy {busy:.1f} ms in a profiled torch pass "
+          f"({100.0 * busy / med['torch']:.2f}% of the warm median)")
+
+    # (b) the CLI's headline on the card against the same CLI on numpy
+    head = ["--policies", "reactive,predictive", "--engines", str(E)]
+    evals.update(torch=0, numpy=0)
+    on_card, card_ms = _timed(lambda: _twin_cli(head))
+    if not evals["torch"] or evals["numpy"]:
+        raise AssertionError(f"16: CLI default evaluated {evals}")
+    on_host, host_ms = _timed(lambda: _twin_cli([*head, "--backend", "numpy"]))
+    if on_card != on_host:
+        raise AssertionError("16: the CLI's reports differ between torch and numpy")
+    doc = json.loads(on_card)
+    print(f"  (b) twin CLI {' '.join(head)}: torch {card_ms:.1f} ms "
+          f"({evals['torch']} step-cost evaluations), numpy {host_ms:.1f} ms; reports "
+          f"equal; violation-s reactive {doc['reactive']['slo_violation_s']} vs "
+          f"predictive {doc['predictive']['slo_violation_s']}, cost "
+          f"{doc['reactive']['cost']} vs {doc['predictive']['cost']}")
+
+    # (c) a spot storm, and a replay of phase 15's artifact
+    rt = read_artifact(os.path.join(tmp, "recorder"))
+    variant = rt.variant_ids()[0]
+    for label, argv in (
+        ("--engines 200 --kills 30:10,45:6", ["--engines", "200", "--kills", "30:10,45:6"]),
+        (f"--replay <phase 15> --variant {variant} --engines 64",
+         ["--replay", os.path.join(tmp, "recorder"), "--variant", variant,
+          "--engines", "64"]),
+    ):
+        on_card, card_ms = _timed(lambda: _twin_cli(argv))
+        on_host, host_ms = _timed(lambda: _twin_cli([*argv, "--backend", "numpy"]))
+        if on_card != on_host:
+            raise AssertionError(f"16: {label}: reports differ between torch and numpy")
+        doc = json.loads(on_card)
+        block = doc.get("reactive", doc)
+        print(f"  (c) twin CLI {label}: torch {card_ms:.1f} ms, numpy {host_ms:.1f} ms; "
+              f"reports equal ({block['completed']} completed, "
+              f"{block['preempted_requests']} preempted)")
+
+
+def _phase17():
+    """17. one closed emulated loop under the port's controller on backend cuda."""
+    from inferno_tpu_torch.config.types import DecodeParms, PrefillParms
+    from inferno_tpu_torch.controller import InMemoryCluster, Reconciler, ReconcilerConfig
+    from inferno_tpu_torch.controller.crd import (
+        ACCELERATOR_LABEL,
+        TYPE_OPTIMIZATION_READY,
+        AcceleratorProfile,
+        ConfigMapKeyRef,
+        VariantAutoscaling,
+        VariantAutoscalingSpec,
+    )
+    from inferno_tpu_torch.emulator import (
+        EmulatedEngine,
+        EngineProfile,
+        LoadGenerator,
+        MiniProm,
+        RateSpec,
+    )
+    from inferno_tpu_torch.ops import cuda_queueing
+    from inferno_tpu_torch.parallel import reset_fleet_state
+
+    model, ns, cfg_ns = "emulated/llama", "workloads", "inferno-system"
+    fast = EngineProfile(alpha=5.0, beta=0.1, gamma=2.0, delta=0.01, max_batch=8)
+    print("17. closed emulated loop: EmulatedEngine -> MiniProm -> the port's "
+          "Reconciler (backend cuda) -> the deployment")
+    cluster = InMemoryCluster()
+    cluster.set_configmap(cfg_ns, "accelerator-unit-costs", {
+        "v5e-4": json.dumps({"cost": 10.0})})
+    cluster.set_configmap(cfg_ns, "service-classes-config", {"premium.yaml": (
+        "name: Premium\npriority: 1\ndata:\n"
+        f"  - model: {model}\n    slo-ttft: 200\n    slo-tpot: 8\n")})
+    cluster.set_configmap(cfg_ns, "inferno-autoscaler-config", {})
+    cluster.add_variant_autoscaling(VariantAutoscaling(
+        name="emulated-llama", namespace=ns, labels={ACCELERATOR_LABEL: "v5e-4"},
+        spec=VariantAutoscalingSpec(
+            model_id=model,
+            slo_class_ref=ConfigMapKeyRef(name="service-classes-config", key="Premium"),
+            accelerators=[AcceleratorProfile(
+                acc="v5e-4", acc_count=1, max_batch_size=fast.max_batch, at_tokens=16,
+                decode_parms=DecodeParms(alpha=fast.alpha, beta=fast.beta),
+                prefill_parms=PrefillParms(gamma=fast.gamma, delta=fast.delta))],
+        ),
+    ))
+    cluster.add_deployment(ns, "emulated-llama", replicas=1)
+    reset_fleet_state()
+    engine = EmulatedEngine(fast)
+    engine.start()
+    prom_srv = MiniProm.for_engines({model: [engine]}, labels={"namespace": ns})
+    prom_srv.start()
+    try:
+        rec = Reconciler(kube=cluster, prom=prom_srv.client(), config=ReconcilerConfig(
+            config_namespace=cfg_ns, compute_backend="cuda", direct_scale=True))
+        gen = LoadGenerator([engine], RateSpec(phases=((3.0, 40.0),)),
+                            in_tokens=16, out_tokens=64)
+        gen.start()
+        gen.join(20)
+        time.sleep(0.5)  # let in-flight requests finish
+        cuda_queueing.LAUNCHES = 0
+        cuda_queueing.BISECT_LAUNCHES = 0
+        report, out_ms = _timed(rec.run_cycle)
+        va = cluster.get_variant_autoscaling(ns, "emulated-llama")
+        desired = va.status.desired_optimized_alloc.num_replicas
+        arrival = va.status.current_alloc.load.arrival_rate
+        deployed = cluster.get_deployment(ns, "emulated-llama")["spec"]["replicas"]
+        if (report.errors or va.status.condition(TYPE_OPTIMIZATION_READY).status != "True"
+                or desired <= 1 or arrival <= 600.0 or deployed != desired):
+            raise AssertionError(f"17: scale-out: errors {report.errors}, desired "
+                                 f"{desired}, arrival {arrival} req/min, deployed {deployed}")
+        # idle: the engine's telemetry windows and the scrape history cleared
+        engine.completions.clear()
+        engine.arrivals.clear()
+        prom_srv.history.clear()
+        prom_srv.scrape_once()
+        prom_srv.scrape_once()
+        report2, in_ms = _timed(rec.run_cycle)
+        launches = (cuda_queueing.LAUNCHES, cuda_queueing.BISECT_LAUNCHES)
+        va = cluster.get_variant_autoscaling(ns, "emulated-llama")
+        idle = va.status.desired_optimized_alloc.num_replicas
+        if report2.errors or idle != 1:
+            raise AssertionError(f"17: scale-in: errors {report2.errors}, desired {idle}")
+        if launches[0] < 1:
+            raise AssertionError(f"17: no stats_kernel launch in the loop: {launches}")
+        print(f"  loaded cycle {out_ms:.1f} ms: {arrival:.1f} req/min observed, 1 -> "
+              f"{desired} replicas (deployment {deployed}); idle cycle {in_ms:.1f} ms: "
+              f"-> {idle}; launches (stats_kernel, bisect_kernel) {launches}")
+    finally:
+        prom_srv.stop()
+        engine.stop()
     reset_fleet_state()
 
 
@@ -1878,13 +2146,19 @@ def main() -> int:
     _phase13()
     _stamp("phase 13 done")
 
-    # 14. the planner; 15. the flight recorder and trace replay
+    # 14. the planner; 15. the flight recorder and trace replay; 16. the
+    # fleet twin (replaying 15's artifact); 17. a closed emulated loop
     _phase14a(smi)
     _phase14b()
     _phase14c()
     _stamp("phase 14 done")
-    _phase15(args.seed, smi)
-    _stamp("phase 15 done")
+    with tempfile.TemporaryDirectory() as tmp:
+        _phase15(args.seed, smi, tmp)
+        _stamp("phase 15 done")
+        _phase16(smi, tmp)
+    _stamp("phase 16 done")
+    _phase17()
+    _stamp("phase 17 done")
 
     replaces = "inferno_tpu/ops/pallas_queueing.py:84"
     print(smi)  # again near the end: a reader of the output's tail sees the card

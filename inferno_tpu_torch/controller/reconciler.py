@@ -419,7 +419,7 @@ class Reconciler:
         if self.config.profile_correction:
             from inferno_tpu_torch.models.corrector import ProfileCorrector
 
-            self.corrector = ProfileCorrector(device=self.config.compute_device)
+            self.corrector = ProfileCorrector(device=self._corrector_device())
         else:
             self.corrector = None
         # predictive scaling (forecast/): the per-variant arrival-rate
@@ -1142,6 +1142,20 @@ class Reconciler:
             )
         )
         return True
+
+    def _corrector_device(self):
+        """Where the corrector's surrogate trains: COMPUTE_DEVICE, else the
+        CUDA card. Resolved when the Reconciler is built, so a controller
+        with neither fails at startup instead of at its first refit."""
+        from inferno_tpu_torch.parallel.mesh import fleet_device
+
+        try:
+            return fleet_device(self.config.compute_device)
+        except RuntimeError as e:
+            raise RuntimeError(
+                f"the profile corrector has no device ({e}); set "
+                f"COMPUTE_DEVICE=cpu, or PROFILE_CORRECTION=false"
+            ) from e
 
     # -- the cycle ----------------------------------------------------------
 

@@ -1,15 +1,87 @@
-"""Experiment helpers for the emulated engine.
+"""Batch experiment runner for the emulated TPU engine.
 
-Port of `inferno_tpu/emulator/experiment.py`, partial: `rate_trace`
-only, verbatim apart from its imports. It samples a `RateSpec` into the
-per-timestep rate vectors of the planner (`planner/scenarios.py`). The
-batch experiment driver and the closed-loop autoscaling comparison come
-with the emulator slice of the port.
+The analogue of the reference's emulator experiment runner
+(the upstream project's tools/vllm-emulator/experiment.py): run the emulator
+under one or more scenario variations for several repetitions, collect
+per-request TTFT/latency and engine telemetry, and report aggregate
+statistics. Where the reference plots matplotlib histograms, this runner
+emits JSON (one document per scenario) and — because the autoscaler's
+whole premise is that the analytic queueing model predicts the engine —
+also reports the model's predicted TTFT/ITL for the same operating point,
+so profile drift shows up as a `model_error` field rather than a chart.
+
+CLI:
+    python -m inferno_tpu_torch.emulator.experiment [--json PATH] [--runs N]
+
+Port copy of `inferno_tpu/emulator/experiment.py`, verbatim apart from its imports.
 """
 
 from __future__ import annotations
 
-from inferno_tpu_torch.emulator.loadgen import RateSpec
+import argparse
+import dataclasses
+import json
+import math
+import statistics
+import sys
+import threading
+import time
+from collections.abc import Callable
+from typing import Any
+
+from inferno_tpu_torch.emulator.disagg import DisaggEngine, DisaggProfile
+from inferno_tpu_torch.emulator.engine import EmulatedEngine, EngineProfile
+from inferno_tpu_torch.emulator.loadgen import LoadGenerator, RateSpec
+from inferno_tpu_torch.obs import Tracer
+
+
+@dataclasses.dataclass(frozen=True)
+class Scenario:
+    """One experiment variation (reference VARIATIONS loop,
+    experiment.py)."""
+
+    name: str
+    profile: EngineProfile = EngineProfile()
+    replicas: int = 1
+    rate: RateSpec = RateSpec(((5.0, 8.0),))
+    in_tokens: int = 128
+    out_tokens: int = 64
+    poisson: bool = True
+    time_scale: float = 0.01  # 100x faster than real time
+    runs: int = 1
+    seed: int = 0
+    # set for a disaggregated (prefill/decode-separated) replica unit:
+    # the engine becomes a DisaggEngine and the model prediction the
+    # tandem analyzer — `profile` is then ignored
+    disagg: DisaggProfile | None = None
+    # pace arrivals on the FIRST engine's virtual clock instead of wall
+    # time: `rate` is then in emulated seconds / req-per-emulated-second,
+    # and the realized emulated rate tracks the schedule by construction
+    # (wall-paced schedules drift with host overhead — VERDICT r5 §5).
+    # Aggregated single-replica scenarios only (the clock is engines[0]).
+    emu_paced: bool = False
+    # spot-eviction injection (spot/injection.PreemptionInjector):
+    # (emulated seconds, replicas to kill) — at each scheduled virtual
+    # time the injector preempts that many surviving replicas, failing
+    # their in-flight requests. Injection polls wall-derived virtual
+    # clocks, so tests driving it belong in the slow tier.
+    preempt_at: tuple[tuple[float, int], ...] = ()
+
+
+@dataclasses.dataclass
+class RunStats:
+    """Aggregates of one repetition."""
+
+    requests: int = 0
+    ttft_ms: list[float] = dataclasses.field(default_factory=list)
+    latency_ms: list[float] = dataclasses.field(default_factory=list)
+    itl_ms: list[float] = dataclasses.field(default_factory=list)
+    kv_used: list[float] = dataclasses.field(default_factory=list)
+    batch_depth: list[int] = dataclasses.field(default_factory=list)
+    queue_depth: list[int] = dataclasses.field(default_factory=list)
+    emu_window_ms: float = 0.0  # sum over engines of emulated msec of load
+    submitted: int = 0
+    preempted_requests: int = 0  # in-flight work killed by eviction injection
 
 
 def rate_trace(
@@ -33,3 +105,627 @@ def rate_trace(
     if repeat and spec.total_duration > 0:
         ts = ts % spec.total_duration
     return np.asarray([spec.rate_at(float(t)) for t in ts], np.float64)
+
+
+def _percentile(xs: list[float], q: float) -> float:
+    if not xs:
+        return 0.0
+    ys = sorted(xs)
+    idx = min(len(ys) - 1, max(0, round(q * (len(ys) - 1))))
+    return ys[idx]
+
+
+def _summary(xs: list[float]) -> dict[str, float]:
+    if not xs:
+        return {"mean": 0.0, "std": 0.0, "p50": 0.0, "p95": 0.0, "p99": 0.0}
+    return {
+        "mean": statistics.fmean(xs),
+        "std": statistics.pstdev(xs) if len(xs) > 1 else 0.0,
+        "p50": _percentile(xs, 0.50),
+        "p95": _percentile(xs, 0.95),
+        "p99": _percentile(xs, 0.99),
+    }
+
+
+def _model_prediction(scenario: Scenario, per_replica_rps: float) -> dict[str, Any]:
+    """What the autoscaler's queueing analyzer predicts for this operating
+    point: expected TTFT/ITL at the offered per-replica rate (time_scale
+    does not enter — the emulator compresses wall-clock, not model time)."""
+    from inferno_tpu_torch.analyzer import build_analyzer
+    from inferno_tpu_torch.analyzer.queue import RequestSize
+    from inferno_tpu_torch.config import (
+        MAX_QUEUE_TO_BATCH_RATIO,
+        DecodeParms,
+        PrefillParms,
+    )
+
+    request = RequestSize(
+        avg_in_tokens=scenario.in_tokens, avg_out_tokens=scenario.out_tokens
+    )
+    if scenario.disagg is not None:
+        from inferno_tpu_torch.analyzer import build_disagg_analyzer
+        from inferno_tpu_torch.config.types import DisaggSpec
+
+        d = scenario.disagg
+        analyzer = build_disagg_analyzer(
+            max_batch=d.decode_max_batch,
+            max_queue=d.decode_max_batch * MAX_QUEUE_TO_BATCH_RATIO,
+            decode=DecodeParms(alpha=d.alpha, beta=d.beta),
+            # the tandem model folds the KV handoff into the prefill
+            # constant (analyzer/disagg.py docstring)
+            prefill=PrefillParms(gamma=d.gamma + d.kv_transfer_ms, delta=d.delta),
+            request=request,
+            spec=DisaggSpec(prefill_slices=d.prefill_engines,
+                            decode_slices=d.decode_engines,
+                            prefill_max_batch=d.prefill_max_batch),
+        )
+    else:
+        p = scenario.profile
+        analyzer = build_analyzer(
+            max_batch=p.max_batch,
+            max_queue=p.max_batch * MAX_QUEUE_TO_BATCH_RATIO,
+            decode=DecodeParms(alpha=p.alpha, beta=p.beta),
+            prefill=PrefillParms(gamma=p.gamma, delta=p.delta),
+            request=request,
+        )
+    try:
+        m = analyzer.analyze(per_replica_rps)
+    except Exception as exc:  # over the stability limit etc.
+        return {"error": str(exc)}
+    # TTFT convention: the tandem analyzer's gamma includes
+    # kv_transfer_ms (folded above), so its TTFT is decode-admission
+    # time; the emulator stamps TTFT at prefill completion, before the
+    # transfer (JetStream semantics — disagg.py module docstring).
+    # Subtract the handoff so both sides speak the emulator's convention.
+    ttft = m.ttft - (scenario.disagg.kv_transfer_ms
+                     if scenario.disagg is not None else 0.0)
+    return {
+        "ttft_ms": ttft,
+        "itl_ms": m.avg_token_time,
+        "rho": m.rho,
+        "concurrency": m.avg_num_in_serv,
+    }
+
+
+def run_scenario(
+    scenario: Scenario, clock: Callable[[], float] = time.time
+) -> dict[str, Any]:
+    """Run every repetition of one scenario and aggregate
+    (reference: the per-variation NUM_RUNS loop, experiment.py).
+
+    `clock` (INF005 seam) only paces the drain deadline — a wall bound
+    on waiting for in-flight work, injected so the analyzer's
+    no-wall-reads rule holds without an allowlist entry."""
+    if scenario.emu_paced and (scenario.replicas != 1 or scenario.disagg is not None):
+        # the schedule clock is engines[0]'s virtual clock: with N
+        # replicas the realized "per-replica" rate would silently read
+        # N x the truth, corrupting the model check
+        raise ValueError(
+            "emu_paced requires a single aggregated replica "
+            f"(got replicas={scenario.replicas}, disagg={scenario.disagg is not None})"
+        )
+    # span trace of the experiment (obs/trace.py): one child per run with
+    # drive/drain/collect phases, attached to the result as `trace` so a
+    # slow scenario is attributable (driving vs draining vs host overhead)
+    tracer = Tracer(f"scenario:{scenario.name}")
+    per_run: list[RunStats] = []
+    for run_idx in range(scenario.runs):
+        stats = RunStats()
+        with tracer.span("run", run=run_idx) as run_sp:
+            engines = [
+                DisaggEngine(scenario.disagg, time_scale=scenario.time_scale)
+                if scenario.disagg is not None
+                else EmulatedEngine(scenario.profile, time_scale=scenario.time_scale)
+                for _ in range(scenario.replicas)
+            ]
+            for e in engines:
+                e.start()
+            gen = LoadGenerator(
+                engines,
+                scenario.rate,
+                in_tokens=scenario.in_tokens,
+                out_tokens=scenario.out_tokens,
+                poisson=scenario.poisson,
+                seed=scenario.seed + run_idx,
+                schedule_clock=(
+                    (lambda e=engines[0]: e.emu_ms / 1000.0)
+                    if scenario.emu_paced else None
+                ),
+                wall_per_unit=(
+                    scenario.time_scale if scenario.emu_paced else 1.0
+                ),
+            )
+
+            # telemetry sampler thread (the reference samples device memory
+            # every iteration; we sample KV + queue depths at 50Hz)
+            stop = threading.Event()
+
+            def sample() -> None:
+                while not stop.is_set():
+                    for e in engines:
+                        stats.kv_used.append(e.kv_used_fraction())
+                        stats.batch_depth.append(e.num_running)
+                        stats.queue_depth.append(e.num_waiting)
+                    time.sleep(0.02)
+
+            sampler = threading.Thread(target=sample, daemon=True)
+            sampler.start()
+            injector = None
+            if scenario.preempt_at:
+                from inferno_tpu_torch.spot.injection import PreemptionInjector
+
+                injector = PreemptionInjector(engines, scenario.preempt_at)
+                injector.start()
+            with tracer.span("drive"):
+                gen.start()
+                gen.join()
+            if injector is not None:
+                injector.stop()
+                stats.preempted_requests = injector.preempted_requests
+            # emulated length of the arrival window, before drain idles the
+            # clocks further: the measured operating point for the model
+            # check. Emu-paced runs read the generator's own schedule clock
+            # (engine clocks fold in thread-startup idle, a systematic
+            # realized-rate underestimate).
+            if scenario.emu_paced and gen.elapsed > 0:
+                stats.emu_window_ms = gen.elapsed * 1000.0
+            else:
+                stats.emu_window_ms = sum(e.emu_ms for e in engines)
+            stats.submitted = gen.submitted
+            # drain: wait for in-flight work to finish
+            with tracer.span("drain"):
+                deadline = clock() + 30.0
+                while clock() < deadline and any(
+                    e.num_running or e.num_waiting for e in engines
+                ):
+                    time.sleep(0.02)
+            stop.set()
+            sampler.join(timeout=1.0)
+            with tracer.span("collect"):
+                for e in engines:
+                    e.stop()
+                    for _, res in e.completions:
+                        stats.requests += 1
+                        # virtual-clock (profile msec) timings, free of host
+                        # scheduling overhead
+                        stats.ttft_ms.append(res.ttft_emu_ms)
+                        stats.latency_ms.append(res.latency_emu_ms)
+                        if res.out_tokens > 1:
+                            stats.itl_ms.append(
+                                (res.latency_emu_ms - res.ttft_emu_ms)
+                                / (res.out_tokens - 1)
+                            )
+            run_sp.set(requests=stats.requests, submitted=stats.submitted)
+        per_run.append(stats)
+
+    requests = sum(s.requests for s in per_run)
+    ttft = [x for s in per_run for x in s.ttft_ms]
+    latency = [x for s in per_run for x in s.latency_ms]
+    itl = [x for s in per_run for x in s.itl_ms]
+    kv = [x for s in per_run for x in s.kv_used]
+    offered_rps = (
+        sum(r * d for d, r in scenario.rate.phases) / scenario.rate.total_duration
+        if scenario.rate.total_duration
+        else 0.0
+    )
+    # Timings are already in emulated (profile) msec via the engine's
+    # virtual clock — the unit the latency profile and analytic model
+    # speak.
+    result: dict[str, Any] = {
+        "scenario": scenario.name,
+        "runs": scenario.runs,
+        "replicas": scenario.replicas,
+        "requests": requests,
+        "preempted_requests": sum(s.preempted_requests for s in per_run),
+        "offered_rps": offered_rps,
+        "ttft_ms": _summary(ttft),
+        "latency_ms": _summary(latency),
+        "itl_ms": _summary(itl),
+        "kv_used": _summary(kv),
+        "batch_depth": _summary([float(x) for s in per_run for x in s.batch_depth]),
+        "queue_depth": _summary([float(x) for s in per_run for x in s.queue_depth]),
+    }
+    # Analytic prediction at the *measured* emulated operating point:
+    # host sleep overhead makes the wall->emulated conversion drift, so
+    # derive the per-replica rate from what actually arrived per emulated
+    # second. Only meaningful for stationary schedules — queueing latency
+    # is convex in rate, so a time-averaged rate misrepresents ramps.
+    if len(scenario.rate.phases) == 1:
+        with tracer.span("model-check"):
+            submitted = sum(s.submitted for s in per_run)
+            window_s = sum(s.emu_window_ms for s in per_run) / 1000.0
+            emu_rps = submitted / window_s if window_s > 0 else 0.0
+            result["measured_emu_rps_per_replica"] = emu_rps
+            result["model"] = _model_prediction(scenario, emu_rps)
+            model = result["model"]
+            # model error via the scoreboard's shared guard
+            # (obs/attainment.relative_error — the same convention the
+            # live controller's inferno_model_error_* gauges use), one
+            # entry per latency dimension the model predicted
+            from inferno_tpu_torch.obs import relative_error
+
+            errors = {}
+            if itl:
+                rel = relative_error(
+                    model.get("itl_ms"), result["itl_ms"]["mean"]
+                )
+                if rel is not None:
+                    errors["itl_rel"] = rel
+            if ttft:
+                rel = relative_error(
+                    model.get("ttft_ms"), result["ttft_ms"]["mean"]
+                )
+                if rel is not None:
+                    errors["ttft_rel"] = rel
+            if errors:
+                result["model_error"] = errors
+    else:
+        result["model"] = {"skipped": "nonstationary rate schedule"}
+    result["trace"] = tracer.finish().to_dict()
+    return result
+
+
+def benched_point_scenario(
+    alpha: float,
+    beta: float,
+    gamma: float,
+    delta: float,
+    max_batch: int,
+    rate_rps: float,
+    in_tokens: int = 128,
+    out_tokens: int = 128,
+    emu_duration_s: float = 16.0,
+    time_scale: float = 0.1,
+    seed: int = 0,
+    name: str = "benched-point",
+) -> Scenario:
+    """Scenario at an autoscaler-sized operating point (round-4 verdict
+    weak #4: the p99 the bench promises must be MEASURED, not only
+    model-derived). `rate_rps` is the EMULATED per-replica arrival rate,
+    paced against the engine's virtual clock (`emu_paced`): wall-paced
+    schedules drifted 10-30% off the emulated target with host overhead
+    (VERDICT r5 §5 measured 6.3% under-drive), while emu-paced arrivals
+    realize the target rate by construction — realized/target ≥ 0.98 is
+    asserted in tests/test_bench.py. One replica suffices: Poisson
+    splitting makes each replica of an N-replica fleet an independent
+    M/·/1 at the per-replica rate."""
+    return Scenario(
+        name=name,
+        profile=EngineProfile(alpha=alpha, beta=beta, gamma=gamma,
+                              delta=delta, max_batch=max_batch),
+        rate=RateSpec(((emu_duration_s, rate_rps),)),
+        in_tokens=in_tokens,
+        out_tokens=out_tokens,
+        time_scale=time_scale,
+        seed=seed,
+        emu_paced=True,
+    )
+
+
+# -- closed-loop predictive-vs-reactive autoscaling ---------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class AutoscaleScenario:
+    """A closed-loop autoscaling experiment: an offered-rate schedule
+    (`RateSpec`, with ramps via `RateSpec.ramp` and burst phases), a
+    per-replica sustainable ceiling λ_max (from the queueing analyzer —
+    `sustainable_rate_rps`), and the replica spin-up latency the
+    controller must anticipate. `run_autoscale_loop` drives a controller
+    against it and scores SLO-violation seconds and cost.
+
+    The plant is the same queueing model the discrete-event emulator
+    validates elsewhere in this module (`model_error` stays small on
+    stationary schedules), stepped DETERMINISTICALLY: per plant step,
+    capacity is `serving_replicas x lambda_max_rps`; offered load beyond
+    capacity accumulates as backlog that drains only through excess
+    capacity; any step with a capacity shortfall OR an undrained backlog
+    is SLO-violating (an M/M-style queue with λ >= μ has unbounded wait,
+    and a backlog means admitted requests are still waiting out the
+    breach). No threads, no sleeps, no RNG — two runs produce identical
+    results, which is what lets a non-slow test assert a STRICT
+    predictive-vs-reactive ordering.
+
+    Times are in schedule (emulated) seconds; `spinup_s` must be
+    expressed in the same compressed unit (the production horizon is
+    `config.tpu_catalog.spinup_seconds`, in wall seconds).
+    """
+
+    name: str
+    rate: RateSpec
+    lambda_max_rps: float  # per-replica sustainable ceiling
+    spinup_s: float  # scale-up decision -> serving, schedule seconds
+    control_interval_s: float = 2.0  # reconcile cadence
+    plant_dt_s: float = 0.25  # plant integration step
+    initial_replicas: int = 1
+    max_replicas: int = 64
+    cost_per_replica_hr: float = 1.0  # any currency; comparisons are relative
+    # the reactive baseline's scale-down stabilization: HPA semantics
+    # (testing/hpa.py) with the sample policy's 120s window — a blind
+    # controller needs a long window because a dip's only credential is
+    # its duration
+    reactive_stabilization_s: float = 120.0
+    # the predictive controller runs a much shorter window: the risk
+    # stabilization bounds is "scale in, then need the capacity back
+    # before a replacement can spin up", so a couple of spin-up
+    # latencies suffice once a forecast covers the horizon. None =
+    # 2 x (spinup + control interval).
+    predictive_stabilization_s: float | None = None
+
+
+def sustainable_rate_rps(
+    profile: EngineProfile, in_tokens: int = 128, out_tokens: int = 128
+) -> float:
+    """Per-replica sustainable arrival-rate ceiling λ_max (req/s) for an
+    engine profile at a request shape — the analyzer's stable-rate
+    ceiling, the same quantity DecisionRecord.lambda_max_rpm reports in
+    req/min."""
+    from inferno_tpu_torch.analyzer import build_analyzer
+    from inferno_tpu_torch.analyzer.queue import RequestSize
+    from inferno_tpu_torch.config import (
+        MAX_QUEUE_TO_BATCH_RATIO,
+        DecodeParms,
+        PrefillParms,
+    )
+
+    analyzer = build_analyzer(
+        max_batch=profile.max_batch,
+        max_queue=profile.max_batch * MAX_QUEUE_TO_BATCH_RATIO,
+        decode=DecodeParms(alpha=profile.alpha, beta=profile.beta),
+        prefill=PrefillParms(gamma=profile.gamma, delta=profile.delta),
+        request=RequestSize(avg_in_tokens=in_tokens, avg_out_tokens=out_tokens),
+    )
+    return float(analyzer.max_rate)
+
+
+def forecast_scenario(
+    profile: EngineProfile = EngineProfile(),
+    spinup_s: float = 4.0,
+    name: str = "ramp-burst",
+    time_scale: float = 1.0,
+    control_interval_s: float = 2.0,
+    plant_dt_s: float = 0.25,
+) -> AutoscaleScenario:
+    """The canonical ramp + burst + release schedule, with rates in
+    multiples of the profile's λ_max so replica counts stay readable:
+    ramp 1.3λ→5λ (RateSpec.ramp), hold, a 9λ burst, hold, ramp down,
+    and a long cheap tail where the reactive baseline's stabilization
+    window is still holding the burst peak. `time_scale` stretches every
+    phase duration — 1.0 is the compressed test schedule (~92 s with a
+    4 s spin-up); bench runs the same shape at production timing
+    (catalog spin-up, 60 s reconcile interval, time_scale ~20)."""
+    lam = sustainable_rate_rps(profile)
+    ts = time_scale
+    up = RateSpec.ramp(1.3 * lam, 5.0 * lam, 30.0 * ts, steps=6)
+    down = RateSpec.ramp(5.0 * lam, 1.5 * lam, 12.0 * ts, steps=4)
+    schedule = RateSpec(
+        up.phases
+        + ((12.0 * ts, 5.0 * lam), (6.0 * ts, 9.0 * lam), (12.0 * ts, 5.0 * lam))
+        + down.phases
+        + ((20.0 * ts, 1.5 * lam),)
+    )
+    return AutoscaleScenario(
+        name=name,
+        rate=schedule,
+        lambda_max_rps=lam,
+        spinup_s=spinup_s,
+        control_interval_s=control_interval_s,
+        plant_dt_s=plant_dt_s,
+    )
+
+
+def run_autoscale_loop(
+    scenario: AutoscaleScenario, controller: str = "reactive"
+) -> dict[str, Any]:
+    """Drive one controller flavor through the scenario.
+
+    `controller`: "reactive" sizes on the interval's observed mean rate;
+    "predictive" feeds the same observations through
+    `forecast.ArrivalForecaster` and sizes on max(observed, forecast
+    upper band at spinup + one control interval), with the shorter
+    forecast-backed stabilization window. Cost counts PROVISIONED
+    replicas (spinning-up replicas bill from the scale-up decision —
+    slices are paid for while the server loads weights).
+    """
+    from inferno_tpu_torch.forecast import (
+        ArrivalForecaster,
+        ForecastConfig,
+        ScaleDownStabilizer,
+    )
+
+    if controller not in ("reactive", "predictive"):
+        raise ValueError(f"controller must be reactive|predictive, got {controller!r}")
+    predictive = controller == "predictive"
+    # gains calibrated to the loop's actual observation cadence
+    forecaster = (
+        ArrivalForecaster(
+            ForecastConfig(reference_interval_s=scenario.control_interval_s)
+        )
+        if predictive else None
+    )
+    window = (
+        scenario.predictive_stabilization_s
+        if scenario.predictive_stabilization_s is not None
+        else 2.0 * (scenario.spinup_s + scenario.control_interval_s)
+    ) if predictive else scenario.reactive_stabilization_s
+    stabilizer = ScaleDownStabilizer(window)
+    horizon = scenario.spinup_s + scenario.control_interval_s
+    lam_max = scenario.lambda_max_rps
+
+    serving = scenario.initial_replicas
+    pending: list[list[float]] = []  # [ready_at, count]
+    backlog = 0.0  # requests admitted beyond capacity, awaiting drain
+    violation_s = 0.0
+    replica_seconds = 0.0
+    peak_provisioned = serving
+    scale_ups = scale_downs = 0
+    dt = scenario.plant_dt_s
+    t = 0.0
+    next_control = scenario.control_interval_s
+    interval_integral = 0.0
+    interval_elapsed = 0.0
+    end = scenario.rate.total_duration
+
+    while t < end - 1e-9:
+        # promote replicas whose spin-up completed
+        ready = [p for p in pending if p[0] <= t + 1e-9]
+        if ready:
+            serving += int(sum(c for _, c in ready))
+            pending = [p for p in pending if p[0] > t + 1e-9]
+
+        lam = scenario.rate.rate_at(t)
+        capacity = serving * lam_max
+        if lam > capacity:
+            backlog += (lam - capacity) * dt
+        else:
+            backlog = max(0.0, backlog - (capacity - lam) * dt)
+        if lam > capacity or backlog > 1e-9:
+            violation_s += dt
+        provisioned = serving + int(sum(c for _, c in pending))
+        peak_provisioned = max(peak_provisioned, provisioned)
+        replica_seconds += provisioned * dt
+        interval_integral += lam * dt
+        interval_elapsed += dt
+        t += dt
+
+        if t + 1e-9 >= next_control:
+            lam_obs = interval_integral / max(interval_elapsed, 1e-9)
+            interval_integral = interval_elapsed = 0.0
+            lam_sizing = lam_obs
+            if forecaster is not None:
+                forecaster.observe(scenario.name, t, lam_obs)
+                fc = forecaster.forecast(scenario.name, horizon)
+                if fc.valid:
+                    lam_sizing = max(lam_obs, fc.upper)
+            raw = min(
+                scenario.max_replicas, max(1, math.ceil(lam_sizing / lam_max))
+            )
+            desired, _held = stabilizer.recommend(scenario.name, raw, t)
+            if desired > provisioned:
+                pending.append([t + scenario.spinup_s, desired - provisioned])
+                scale_ups += 1
+            elif desired < provisioned:
+                drop = provisioned - desired
+                scale_downs += 1
+                # cancel not-yet-ready capacity first, newest orders first
+                for p in sorted(pending, key=lambda p: -p[0]):
+                    take = min(drop, int(p[1]))
+                    p[1] -= take
+                    drop -= take
+                    if drop == 0:
+                        break
+                pending = [p for p in pending if p[1] > 0]
+                serving -= drop  # scale-in is immediate
+            next_control += scenario.control_interval_s
+
+    duration_h = end / 3600.0
+    avg_replicas = replica_seconds / end
+    return {
+        "provenance": controller,
+        "stabilization_window_s": window,
+        "slo_violation_s": round(violation_s, 3),
+        "violation_fraction": round(violation_s / end, 4),
+        "replica_seconds": round(replica_seconds, 3),
+        "avg_replicas": round(avg_replicas, 3),
+        "peak_replicas": peak_provisioned,
+        "cost": round(
+            avg_replicas * scenario.cost_per_replica_hr * duration_h, 6
+        ),
+        "final_backlog": round(backlog, 3),
+        "scale_ups": scale_ups,
+        "scale_downs": scale_downs,
+    }
+
+
+def run_autoscale_comparison(
+    scenario: AutoscaleScenario | None = None,
+) -> dict[str, Any]:
+    """Reactive baseline vs predictive controller on the same scenario,
+    provenance-marked — the bench's `predictive` block and the
+    acceptance check's subject: the predictive controller must incur
+    strictly fewer SLO-violation seconds at equal-or-lower average
+    cost."""
+    scenario = scenario or forecast_scenario()
+    reactive = run_autoscale_loop(scenario, "reactive")
+    predictive = run_autoscale_loop(scenario, "predictive")
+    return {
+        "scenario": {
+            "name": scenario.name,
+            "duration_s": scenario.rate.total_duration,
+            "phases": [list(p) for p in scenario.rate.phases],
+            "lambda_max_rps": round(scenario.lambda_max_rps, 4),
+            "spinup_s": scenario.spinup_s,
+            "control_interval_s": scenario.control_interval_s,
+        },
+        "reactive": reactive,
+        "predictive": predictive,
+        "predictive_vs_reactive": {
+            "slo_violation_s_saved": round(
+                reactive["slo_violation_s"] - predictive["slo_violation_s"], 3
+            ),
+            "cost_delta": round(
+                predictive["cost"] - reactive["cost"], 6
+            ),
+        },
+    }
+
+
+DEFAULT_SCENARIOS = (
+    Scenario(name="steady-light", rate=RateSpec(((4.0, 5.0),))),
+    Scenario(name="steady-heavy", rate=RateSpec(((4.0, 20.0),))),
+    Scenario(
+        name="ramp",
+        rate=RateSpec(((2.0, 5.0), (2.0, 15.0), (2.0, 30.0))),
+        replicas=2,
+    ),
+    Scenario(
+        name="disagg-steady",
+        rate=RateSpec(((4.0, 8.0),)),
+        disagg=DisaggProfile(alpha=20.0, beta=0.4, gamma=5.0, delta=0.02,
+                             prefill_max_batch=8, decode_max_batch=64,
+                             prefill_engines=1, decode_engines=2,
+                             kv_transfer_ms=2.0),
+        # coarser compression than the aggregated scenarios: the disagg
+        # emulator's virtual clock derives from scaled wall time, so
+        # admission-poll overhead shrinks with a larger scale
+        time_scale=0.05,
+    ),
+)
+
+
+def main(argv: list[str] | None = None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--json", default="", help="write results to this path")
+    ap.add_argument("--runs", type=int, default=1)
+    ap.add_argument("--scenario", default="", help="run only the named scenario")
+    ap.add_argument(
+        "--autoscale", action="store_true",
+        help="run the closed-loop predictive-vs-reactive autoscale "
+             "comparison instead of the engine scenarios",
+    )
+    args = ap.parse_args(argv)
+
+    if args.autoscale:
+        res = run_autoscale_comparison()
+        print(json.dumps(res, indent=1))
+        if args.json:
+            with open(args.json, "w") as f:
+                json.dump(res, f, indent=2)
+        return 0
+
+    results = []
+    for sc in DEFAULT_SCENARIOS:
+        if args.scenario and sc.name != args.scenario:
+            continue
+        sc = dataclasses.replace(sc, runs=args.runs)
+        res = run_scenario(sc)
+        results.append(res)
+        print(json.dumps(res))
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(results, f, indent=2)
+    return 0 if results else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,15 +1,50 @@
-"""Load schedules for emulated (or real) engines.
+"""Load generation against emulated (or real) engines.
 
-Port of `inferno_tpu/emulator/loadgen.py`, partial: `RateSpec` only,
-verbatim apart from its imports. It is the schedule language the
-planner's scenario generators (`planner/scenarios.py`) build on. The
-token distributions and the load generators that drive an engine come
-with the emulator slice of the port.
+The analogue of the upstream project's tools/vllm-emulator/loadgen.py:38-131:
+Poisson or deterministic arrivals with a piecewise-constant rate
+schedule, driving fire-and-forget submissions.
+
+Port copy of `inferno_tpu/emulator/loadgen.py`, verbatim apart from its imports.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
+import time
+from collections.abc import Callable
+
+import numpy as np
+
+from inferno_tpu_torch.emulator.engine import EmulatedEngine
+
+
+@dataclasses.dataclass(frozen=True)
+class TokenDistribution:
+    """Lognormal token-length distribution.
+
+    Conversation corpora (ShareGPT et al.) have heavy-tailed prompt and
+    completion lengths; the reference's e2e drives them through guidellm
+    (the upstream project's test/e2e-openshift/sharegpt_scaleup_test.go:39-227).
+    `sigma=0` degrades to a deterministic `median` for table tests.
+    """
+
+    median: float = 128.0
+    sigma: float = 0.0
+    max_tokens: int = 4096
+
+    def sample(self, rng: np.random.Generator) -> int:
+        if self.sigma <= 0.0:
+            return int(np.clip(round(self.median), 1, self.max_tokens))
+        v = rng.lognormal(mean=np.log(self.median), sigma=self.sigma)
+        return int(np.clip(round(v), 1, self.max_tokens))
+
+
+# Emulation presets approximating public ShareGPT conversation statistics
+# (median prompt a few hundred tokens, completions slightly shorter, both
+# with a long right tail).
+SHAREGPT_INPUT = TokenDistribution(median=160.0, sigma=1.1, max_tokens=2048)
+SHAREGPT_OUTPUT = TokenDistribution(median=120.0, sigma=0.9, max_tokens=1024)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,3 +97,194 @@ class RateSpec:
         )
 
 
+class LoadGenerator:
+    def __init__(
+        self,
+        engines: list[EmulatedEngine],
+        rate: RateSpec,
+        in_tokens: int = 128,
+        out_tokens: int = 64,
+        poisson: bool = True,
+        seed: int = 0,
+        in_dist: TokenDistribution | None = None,
+        out_dist: TokenDistribution | None = None,
+        schedule_clock=None,
+        wall_per_unit: float = 1.0,
+        wall_clock: Callable[[], float] = time.time,
+    ):
+        """`schedule_clock` (optional) makes the arrival schedule run on a
+        caller-supplied clock instead of wall time: a zero-arg callable
+        returning seconds in schedule units — e.g. an EmulatedEngine's
+        virtual clock (`lambda: engine.emu_ms / 1000.0`), so the RateSpec
+        is then in EMULATED seconds/req-per-emulated-second and the
+        realized emulated rate tracks the schedule by construction, with
+        no wall-overhead distortion (the bench's benched-point runs use
+        this). `wall_per_unit` estimates wall seconds per schedule second
+        (the engine's time_scale) so waits sleep instead of spinning.
+        `wall_clock` is the wall source behind the default schedule
+        clock (INF005 seam: a default-arg reference, injectable)."""
+        self.engines = engines
+        self.rate = rate
+        self.in_tokens = in_tokens
+        self.out_tokens = out_tokens
+        self.in_dist = in_dist
+        self.out_dist = out_dist
+        self.poisson = poisson
+        self.rng = np.random.default_rng(seed)
+        self.submitted = 0
+        self.schedule_clock = schedule_clock
+        self.wall_per_unit = wall_per_unit
+        self.wall_clock = wall_clock
+        # schedule seconds actually elapsed when the run finished (~ the
+        # schedule duration): the denominator for an unbiased realized
+        # rate — engine-side clocks include thread-startup idle
+        self.elapsed = 0.0
+        self._thread: threading.Thread | None = None
+
+    def _clock(self):
+        """Elapsed schedule seconds since generator start."""
+        if self.schedule_clock is None:
+            start = self.wall_clock()
+            return lambda: self.wall_clock() - start
+        c0 = self.schedule_clock()
+        return lambda: self.schedule_clock() - c0
+
+    def _run(self) -> None:
+        clock = self._clock()
+        i = 0
+        # Absolute-schedule pacing: arrival times are generated on the
+        # schedule clock and slept-to, so per-sleep overshoot (timer
+        # granularity + submit() host cost, ~0.5-1.5 ms each) is absorbed
+        # by the next gap instead of accumulating. The naive
+        # sleep-per-gap loop under-drove high-rate schedules by 10-50%
+        # (gaps of ~1 ms vs ~1 ms overhead), which made the bench's
+        # "measured p99 at the benched point" validate a materially
+        # easier operating point than promised (VERDICT r5 §5).
+        next_at = 0.0
+        while True:
+            t = clock()
+            if t >= self.rate.total_duration:
+                self.elapsed = t
+                return
+            rate = self.rate.rate_at(t)
+            if rate <= 0:
+                next_at = max(next_at, t) + 0.01
+                time.sleep(0.01 * self.wall_per_unit)
+                continue
+            gap = (
+                float(self.rng.exponential(1.0 / rate)) if self.poisson else 1.0 / rate
+            )
+            next_at += gap
+            if self.schedule_clock is None:
+                delay = next_at - clock()
+                if delay > 0:
+                    time.sleep(delay)
+            else:
+                # a non-wall clock advances on its own cadence (e.g. the
+                # engine's step quanta): sleep in short wall slices and
+                # re-read until the schedule reaches the arrival time
+                while (remaining := next_at - clock()) > 0:
+                    time.sleep(min(remaining * self.wall_per_unit, 0.002))
+            # round-robin across replicas (a crude load balancer)
+            engine = self.engines[i % len(self.engines)]
+            i += 1
+            if self.out_dist is not None:
+                out = self.out_dist.sample(self.rng)
+            else:
+                out = max(1, int(self.rng.poisson(self.out_tokens)))
+            inp = (
+                self.in_dist.sample(self.rng)
+                if self.in_dist is not None
+                else self.in_tokens
+            )
+            engine.submit(inp, out)
+            self.submitted += 1
+
+    def start(self) -> None:
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def join(self, timeout: float | None = None) -> None:
+        if self._thread:
+            self._thread.join(timeout)
+
+
+class HttpLoadGenerator:
+    """Closed-loop HTTP load against an OpenAI-compatible endpoint —
+    `concurrency` workers each posting the next completion as soon as the
+    previous returns (the reference drives real engines the same way via
+    guidellm concurrency). Usable as a CLI for in-cluster load Jobs:
+
+        python -m inferno_tpu_torch.emulator.loadgen \
+            --url http://engine:8000 --duration 150 --concurrency 6
+    """
+
+    def __init__(self, base_url: str, concurrency: int = 6,
+                 in_words: int = 64, max_tokens: int = 32,
+                 model: str = "m", timeout: float = 30.0):
+        self.url = base_url.rstrip("/") + "/v1/chat/completions"
+        self.concurrency = concurrency
+        self.timeout = timeout
+        import json as _json
+
+        self.body = _json.dumps({
+            "model": model,
+            "messages": [{"role": "user", "content": "x " * in_words}],
+            "max_tokens": max_tokens,
+        }).encode()
+        self.completed = 0
+        self.errors = 0
+        self._lock = threading.Lock()
+
+    def _worker(self, stop_at: float) -> None:
+        import urllib.error
+        import urllib.request
+
+        while time.time() < stop_at:
+            req = urllib.request.Request(
+                self.url, data=self.body,
+                headers={"Content-Type": "application/json"},
+            )
+            try:
+                urllib.request.urlopen(req, timeout=self.timeout).read()
+                with self._lock:
+                    self.completed += 1
+            except (urllib.error.URLError, OSError):
+                with self._lock:
+                    self.errors += 1
+                time.sleep(1.0)  # engine warming up / transient outage
+
+    def run(self, duration_s: float) -> int:
+        stop_at = time.time() + duration_s
+        threads = [
+            threading.Thread(target=self._worker, args=(stop_at,))
+            for _ in range(self.concurrency)
+        ]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        return self.completed
+
+
+def main() -> None:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="closed-loop HTTP load generator")
+    ap.add_argument("--url", required=True, help="engine base URL")
+    ap.add_argument("--duration", type=float, default=60.0, help="seconds")
+    ap.add_argument("--concurrency", type=int, default=6)
+    ap.add_argument("--max-tokens", type=int, default=32)
+    ap.add_argument("--in-words", type=int, default=64)
+    ap.add_argument("--model", default="m")
+    args = ap.parse_args()
+    gen = HttpLoadGenerator(
+        args.url, concurrency=args.concurrency,
+        in_words=args.in_words, max_tokens=args.max_tokens, model=args.model,
+    )
+    done = gen.run(args.duration)
+    print(f"completed={done} errors={gen.errors}")
+
+
+if __name__ == "__main__":
+    main()

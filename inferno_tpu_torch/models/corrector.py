@@ -62,16 +62,15 @@ Port copy of `inferno_tpu/models/corrector.py`, verbatim apart from its
 imports and the surrogate refit. The refit trains the torch surrogate
 (`models/surrogate.py`, `parallel/train.py`) on `device` (None = the
 CUDA card), from the reference's own initial weights (see
-`models/surrogate.py`). It falls back to ratio scaling on the reference's
-numerical failures only (no spread, non-finite or non-positive
-predictions, a negative fit, a singular least-squares problem); a CUDA,
-build or launch error propagates instead of turning into a silent ratio
-rescale.
+`models/surrogate.py`). As in the reference, any failure of the refit
+falls back to ratio scaling for that variant only; the port also logs it
+and counts it in `refit_errors`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import math
 from collections import deque
 
@@ -84,6 +83,8 @@ MIN_OBSERVATIONS = 6
 SURROGATE_MIN_OBSERVATIONS = 12
 WINDOW = 64
 CORRECTION_BOUNDS = (0.25, 4.0)  # clamp on multiplicative corrections
+
+log = logging.getLogger("inferno.corrector")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,6 +139,7 @@ class ProfileCorrector:
         # only retrain after the window accrues materially new evidence
         self._refit_cache: dict[str, tuple[int, DecodeParms | None]] = {}
         self.refit_every = 8  # new observations between retrains
+        self.refit_errors = 0  # refits that raised (ratio scaling used)
         self._seen: dict[str, int] = {}  # total observations ever per key
 
     def prune(self, active_prefixes: set[str]) -> None:
@@ -250,7 +252,19 @@ class ProfileCorrector:
         self, window: list[Observation], decode: DecodeParms
     ) -> DecodeParms | None:
         """Train the surrogate on the window, then linearize its ITL
-        prediction over the observed concurrency range."""
+        prediction over the observed concurrency range. Any failure falls
+        back to ratio scaling (None), for this variant only."""
+        try:
+            return self._fit_and_linearize(window, decode)
+        except Exception:
+            self.refit_errors += 1
+            log.warning("surrogate refit failed; ratio scaling for this "
+                        "variant", exc_info=True)
+            return None
+
+    def _fit_and_linearize(
+        self, window: list[Observation], decode: DecodeParms
+    ) -> DecodeParms | None:
         conc = np.array([o.concurrency for o in window])
         lo, hi = float(conc.min()), float(conc.max())
         if hi - lo < 1.0:
@@ -297,10 +311,7 @@ class ProfileCorrector:
         if not np.all(np.isfinite(itl_pred)) or np.any(itl_pred <= 0):
             return None
         a_mat = np.stack([np.ones_like(probe), probe], axis=1)
-        try:
-            coef, *_ = np.linalg.lstsq(a_mat, itl_pred, rcond=None)
-        except np.linalg.LinAlgError:
-            return None
+        coef, *_ = np.linalg.lstsq(a_mat, itl_pred, rcond=None)
         alpha, beta = float(coef[0]), float(coef[1])
         if alpha <= 0 or beta < 0:
             return None

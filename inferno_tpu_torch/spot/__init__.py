@@ -1,6 +1,4 @@
-"""Spot-market fleet economics and eviction-storm replays.
-
-Port copy of `inferno_tpu/spot/__init__.py`, without `injection`:
+"""Spot-market fleet economics, eviction-storm replays and injection:
 
 * `market` — the risk model: `TPU_SPOT_POOLS` parsing with actionable
   validation, the spot-replica split every sizing path applies (scalar
@@ -11,11 +9,20 @@ Port copy of `inferno_tpu/spot/__init__.py`, without `injection`:
   outages) and the offline evaluation that replays them against
   `calculate_fleet_batch` output, reporting violation-seconds, recovery
   time, and cost with and without pre-positioned headroom.
+* `injection` — the emulator-side fault injector: `EmulatedEngine`
+  preemption mid-run, and the deterministic closed-loop storm
+  comparison (`run_spot_storm_comparison`).
 
-The reference's `injection` (preempting emulated engines mid-run)
-drives the emulator's engine and comes with the emulator slice.
+Port of `inferno_tpu/spot/__init__.py`; it also exports the names of
+`scenarios` and `injection`.
 """
 
+from inferno_tpu_torch.spot.injection import (
+    PreemptionInjector,
+    run_spot_storm_comparison,
+    run_spot_storm_loop,
+    storm_scenario,
+)
 from inferno_tpu_torch.spot.market import (
     SpotConfigError,
     parse_pool_quotas,
@@ -36,6 +43,7 @@ from inferno_tpu_torch.spot.scenarios import (
 )
 
 __all__ = [
+    "PreemptionInjector",
     "STORM_GENERATORS",
     "SpotConfigError",
     "StormEvent",
@@ -46,8 +54,11 @@ __all__ = [
     "parse_spot_pools",
     "replay_spot_storm",
     "replay_spot_storm_ensemble",
+    "run_spot_storm_comparison",
+    "run_spot_storm_loop",
     "spot_enabled",
     "spot_reclaim",
     "storm_ensemble_seeds",
+    "storm_scenario",
     "zone_outage",
 ]

@@ -3,8 +3,9 @@ chip_smoke.py, imports jax, flax, optax or the JAX package inferno_tpu.
 
 Checked twice: statically (an AST scan of every import statement) and
 dynamically (subprocesses in which those imports are blocked size a fleet,
-run three reconcile cycles, and run the planner and a recorded `--trace`
-replay through the port on the CPU). The scan
+run three reconcile cycles, run the planner and a recorded `--trace`
+replay, and run the twin CLI and an emulator scenario through the port
+on the CPU). The scan
 also holds every import to what the card's installation has: the
 standard library, torch, numpy, PyYAML, triton, and the port itself.
 """
@@ -176,6 +177,42 @@ def test_planner_runs_with_jax_blocked(tmp_path):
                        for m, v in sys.modules.items() if v is not None)
         print("ok", len(doc["parity_sampled"]))
     """, extra_env={"LOG_LEVEL": "warn"})
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
+
+
+def test_twin_and_emulator_run_with_jax_blocked():
+    """`python -m inferno_tpu_torch.twin --engines 8 --duration 10
+    --backend torch --device cpu` (the step cost in torch on the CPU) and
+    one emulator `run_scenario`, with jax blocked."""
+    proc = _run_blocked("""
+        import contextlib, io, json, runpy
+        from inferno_tpu_torch.emulator.engine import EngineProfile
+        from inferno_tpu_torch.emulator.experiment import RateSpec, Scenario, run_scenario
+        from inferno_tpu_torch.twin import plant
+
+        sys.argv = ["inferno_tpu_torch.twin", "--engines", "8", "--duration", "10",
+                    "--backend", "torch", "--device", "cpu"]
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            try:
+                runpy.run_module("inferno_tpu_torch.twin", run_name="__main__")
+            except SystemExit as e:
+                assert e.code in (0, None), e.code
+        report = json.loads(buf.getvalue())
+        assert report["scenario"]["engines"] == 8
+        assert report["reactive"]["completed"] > 0, report["reactive"]
+        assert plant.STEP_COST_EVALS["torch"] > 0 == plant.STEP_COST_EVALS["numpy"]
+
+        res = run_scenario(Scenario(
+            name="blocked", rate=RateSpec(((1.0, 20.0),)), time_scale=0.002,
+            out_tokens=16, profile=EngineProfile(alpha=10.0, beta=0.2, gamma=2.0,
+                                                 delta=0.005, max_batch=16)))
+        assert res["requests"] > 0 and "itl_ms" in res["model"]
+        assert not any(m.split(".")[0] in ("jax", "inferno_tpu")
+                       for m, v in sys.modules.items() if v is not None)
+        print("ok", report["reactive"]["completed"], res["requests"])
+    """)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok")
 

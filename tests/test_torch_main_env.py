@@ -4,7 +4,8 @@ the reference's default, `COMPUTE_DEVICE` is the port's one addition,
 `auto` without a CUDA card raises instead of falling back to the CPU, and
 the reference-only backends are refused. FLIGHT_RECORDER_DIR maps to a
 working recorder, and the planner's backend resolution follows the same
-rule: auto is the card or an error."""
+rule: auto is the card or an error. So does the twin's: TWIN_BACKEND takes
+numpy|torch, and its default, torch, runs on the card or raises."""
 
 from __future__ import annotations
 
@@ -168,3 +169,45 @@ def test_cuda_backend_without_a_card_raises_in_the_solve(monkeypatch):
 
 def test_main_requires_prometheus(clean_env):
     assert p_main.main() == 2
+
+
+@pytest.mark.parametrize("env", ["jax", "cuda", "gpu"])
+def test_unknown_twin_backend_fails_fast(monkeypatch, env):
+    """TWIN_BACKEND=jax (the reference's optional backend) and any other
+    unknown value raise at once, naming both backends, in the plant and
+    in the twin CLI before any trace is built."""
+    from inferno_tpu_torch.emulator.engine import EngineProfile
+    from inferno_tpu_torch.twin import TwinPlant
+    from inferno_tpu_torch.twin.__main__ import main
+
+    monkeypatch.setenv("TWIN_BACKEND", env)
+    with pytest.raises(ValueError, match="numpy|torch"):
+        TwinPlant(EngineProfile(), 2)
+    with pytest.raises(ValueError, match="numpy|torch"):
+        main(["--engines", "2", "--duration", "4"])
+    with pytest.raises(SystemExit):
+        main(["--engines", "2", "--backend", env])
+
+
+def test_twin_default_backend_without_cuda_raises(monkeypatch, capsys):
+    """The twin's default (TWIN_BACKEND unset: torch on the card) raises
+    without a card, naming the two ways to run on the host; nothing
+    falls back to the CPU."""
+    from inferno_tpu_torch.emulator.engine import EngineProfile
+    from inferno_tpu_torch.twin import TwinPlant
+    from inferno_tpu_torch.twin.__main__ import main
+
+    monkeypatch.delenv("TWIN_BACKEND", raising=False)
+    monkeypatch.setattr("torch.cuda.is_available", lambda: False)
+    for build in (lambda: TwinPlant(EngineProfile(), 2),
+                  lambda: TwinPlant(EngineProfile(), 2, backend="torch",
+                                    device="cuda"),
+                  lambda: main(["--engines", "2", "--duration", "4"])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build()
+    with pytest.raises(RuntimeError, match="--backend numpy.*--device cpu"):
+        main(["--engines", "2", "--duration", "4"])
+    assert capsys.readouterr().out == ""
+    # the two explicit host routes run
+    assert TwinPlant(EngineProfile(), 2, backend="numpy").device is None
+    assert TwinPlant(EngineProfile(), 2, device="cpu").backend == "torch"

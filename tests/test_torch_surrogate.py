@@ -154,13 +154,18 @@ def test_refit_without_spread_falls_back_to_ratio():
     assert dec.alpha == pytest.approx(5.0 * state.decode_ratio)
 
 
-def test_refit_device_error_propagates(monkeypatch):
-    """A device error is not a numerical failure: it must not turn into a
-    silent ratio rescale."""
+def test_refit_device_error_propagates(monkeypatch, caplog):
+    """A device error inside the refit propagates to the refit's fallback,
+    as in the reference: it is logged and counted, and this variant is
+    ratio-scaled (a Reconciler resolves the corrector's device when it is
+    built, so a missing card stops the controller there instead)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     port = p_corr.ProfileCorrector(device=None)
     _feed(port, p_corr.Observation, _window(np.random.default_rng(1)))
-    with pytest.raises(RuntimeError, match="CUDA"):
-        port.corrected_parms(
-            "v", DecodeParms(alpha=5.0, beta=0.1), PrefillParms(gamma=2.0, delta=0.01)
-        )
+    dec, _, state = port.corrected_parms(
+        "v", DecodeParms(alpha=5.0, beta=0.1), PrefillParms(gamma=2.0, delta=0.01)
+    )
+    assert state.active and not state.surrogate_used
+    assert dec.alpha == 5.0 * state.decode_ratio
+    assert port.refit_errors == 1
+    assert "CUDA" in caplog.text
