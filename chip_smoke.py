@@ -129,6 +129,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    MiniProm, reconciled by the port's Reconciler on backend cuda with
    direct scaling: the loaded cycle scales the deployment out, the idle
    cycle back to 1, with stats_kernel launched in the loop.
+18. the transformer profiling blocks at full width, random weights from a
+   seed: (a) Llama-3.1-8B and Gemma-2-9B at depth 2 (one sliding and one
+   global Gemma layer), B=4, context 256: four decode and four mixed
+   steps replayed from a CUDA graph bit-identical to eager; one bf16 step
+   within 5% (relative L2 of x and of the cache slot written) of the same
+   weights in float32 on the card, and a mixed step's decode rows within
+   2.5% of a pure decode step; (b) a reduced Llama-3.1-8B sweep through
+   tools/profile_gpu's own functions (depths 2/4/8; decode B 1/16/64/128
+   at context 1,024; mixed B 1/16/48 x T 128/512; prefill B=1 x T
+   128/512), fitted by models/profiles.build_profile_json: α, β, γ, δ,
+   maxBatchSize and the layer-linearity r2 (decode above 0.95), each
+   decode point's share of its byte bound, one full-depth (32-layer)
+   point against the depth line's extrapolation, the peak device memory;
+   (c) one int8 decode point (L=2, B=16, eager dequant) beside bf16.
 
 The card's name and power limit (nvidia-smi) are printed first and again
 before the kernels line.
@@ -145,6 +159,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -1905,6 +1920,227 @@ def _phase17():
     reset_fleet_state()
 
 
+# phase 18: the transformer profiling blocks at full width. (a) depth-2
+# parity checks of both families; (b) a reduced Llama-3.1-8B sweep through
+# profile_gpu's own functions, fitted by models.profiles, and one decode
+# point at full depth; (c) one int8 decode point beside bf16
+P18_BATCH, P18_CONTEXT, P18_STEPS, P18_CHUNK = 4, 256, 4, 64
+# relative L2 error of x after ONE step and of the cache slot it wrote:
+# bf16 against the same weights in float32 on the card (bf16 rounds each
+# product, norm and activation at 2^-8 relative, some ten of them in series
+# per layer: 0.9% at half width on the CPU), and a mixed step's decode rows
+# against a pure decode step in bf16 (the products run at other shapes, so
+# they round elsewhere: 0.5% there). One step: the random-weight stack
+# amplifies a perturbation of its input, so over steps fed back through
+# tanh(logits) the difference roughly doubles each step (5.0% and 3.5%
+# after four at half width) and measures that gain, not the port
+P18_BF16_TOL = 5e-2
+P18_MIXED_TOL = 2.5e-2
+P18_DEPTHS = (2, 4, 8)
+P18_SWEEP = ["--decode-batches", "1", "16", "64", "128", "--mixed-batches", "1", "16", "48",
+             "--mixed-tokens", "128", "512", "--prefill-batches", "1",
+             "--prefill-tokens", "128", "512", "--max-cache-gb", "40"]
+P18_FULL_BATCH = 16
+# a stack of identical layers is linear in depth: the floor the repo's own
+# test of committed profiles holds their decode fits to
+P18_MIN_R2 = 0.95
+
+
+def _rel(a, b):
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm())
+
+
+def _as_float32(params):
+    return {k: (_as_float32(v) if isinstance(v, dict) else v.float())
+            for k, v in params.items()}
+
+
+def _phase18a(dev):
+    """18a. graph replay == eager, bf16 vs float32, mixed rows vs decode."""
+    import torch
+
+    from inferno_tpu_torch.models import gemma_block, llama_block
+    from inferno_tpu_torch.tools.profile_gpu import replayable
+
+    # the float32 reference runs in full float32 (no TF32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, ctx, steps, t = P18_BATCH, P18_CONTEXT, P18_STEPS, P18_CHUNK
+    for model, blk, dims in (
+        ("llama-3.1-8b", llama_block, llama_block.MODEL_PRESETS["llama-3.1-8b"]),
+        ("gemma-2-9b", gemma_block, gemma_block.GEMMA_PRESETS["gemma-2-9b"]),
+    ):
+        gen = torch.Generator(device=dev).manual_seed(18)
+        params = blk.init_stack(gen, dims, 2, "bfloat16", device=dev)
+
+        def noise(*shape):
+            return (torch.randn(shape, generator=gen, device=dev) * 0.1).to(torch.bfloat16)
+
+        x0 = noise(b, 1, dims.hidden)
+        c0 = [noise(b, dims.n_kv_heads, ctx + steps, dims.head_dim) for _ in range(4)]
+        chunk = noise(t, dims.hidden)
+        decode = blk.make_decode_fn(dims, 2, steps)
+        mixed = blk.make_mixed_fn(dims, 2, steps)
+        eager = {
+            "decode": decode(params, x0, [c.clone() for c in c0], ctx),
+            "mixed": mixed(params, x0, [c.clone() for c in c0], chunk, ctx),
+        }
+        for name, fn in (("decode", decode), ("mixed", mixed)):
+            x = x0.clone()
+            caches = [c.clone() for c in c0]
+            pos = torch.zeros((), dtype=torch.int64, device=dev)
+            acc = torch.zeros((), dtype=torch.float32, device=dev)
+            extra = (chunk,) if name == "mixed" else ()
+            run = replayable(lambda: fn.step(params, x, caches, *extra, pos, acc), dev)
+            x.copy_(x0)
+            for c, c_init in zip(caches, c0):
+                c.copy_(c_init)
+            pos.fill_(ctx)
+            acc.zero_()
+            for _ in range(steps):
+                run()
+            s_e, x_e, c_e = eager[name]
+            same = (torch.equal(acc + torch.sum(x.float()), s_e) and torch.equal(x, x_e)
+                    and all(torch.equal(a, e) for a, e in zip(caches, c_e)))
+            print(f"  {model}: {name}, {steps} graph replays vs eager: "
+                  f"{'bit-identical' if same else 'DIFFER'}")
+            if not same:
+                raise AssertionError(f"18a {model}: {name} graph replay differs from eager")
+        # the accuracy checks: one step (see P18_BF16_TOL), the slot it wrote
+        written = slice(ctx, ctx + 1)
+        decode1 = blk.make_decode_fn(dims, 2, 1)
+        s_d, x_d, c_d = decode1(params, x0, [c.clone() for c in c0], ctx)
+        s_f, x_f, c_f = decode1(_as_float32(params), x0.float(), [c.float() for c in c0], ctx)
+        s_m, x_m, c_m = blk.make_mixed_fn(dims, 2, 1)(params, x0, [c.clone() for c in c0],
+                                                      chunk, ctx)
+        torch.cuda.synchronize()
+        bf16_x = _rel(x_d, x_f)
+        bf16_c = max(_rel(a[:, :, written], f[:, :, written]) for a, f in zip(c_d, c_f))
+        mix_x = _rel(x_m, x_d)
+        mix_c = max(_rel(a[:, :, written], d[:, :, written]) for a, d in zip(c_m, c_d))
+        x4 = [_rel(eager["decode"][1], decode(_as_float32(params), x0.float(),
+                                              [c.float() for c in c0], ctx)[1]),
+              _rel(eager["mixed"][1], eager["decode"][1])]
+        finite = all(bool(torch.isfinite(v).all()) for v in (s_d, s_m, s_f, x_d, x_m)
+                     + eager["decode"][:2] + eager["mixed"][:2])
+        print(f"  {model}: bf16 vs float32 (B={b}, context {ctx}, one step): x "
+              f"{bf16_x:.3g}, written cache {bf16_c:.3g} (tolerance {P18_BF16_TOL:g}); "
+              f"scalar {float(s_d):.6g} vs {float(s_f):.6g}")
+        print(f"  {model}: mixed step's decode rows (chunk {t}) vs pure decode, bf16, one "
+              f"step: x {mix_x:.3g}, written cache {mix_c:.3g} (tolerance "
+              f"{P18_MIXED_TOL:g}); after {steps} steps x {x4[0]:.3g} vs float32, "
+              f"{x4[1]:.3g} mixed vs decode (not gated)")
+        if not finite or max(bf16_x, bf16_c) > P18_BF16_TOL or max(mix_x, mix_c) > P18_MIXED_TOL:
+            raise AssertionError(f"18a {model}: finite {finite}, bf16 {bf16_x}/{bf16_c}, "
+                                 f"mixed {mix_x}/{mix_c}")
+        del params, eager, c0, c_f, c_d, c_m, x_f
+        torch.cuda.empty_cache()
+
+
+def _decode_step_bytes(dims, n_layers, batch, context, steps):
+    """Bytes one decode step must move, each input read once and each
+    output written once: the weights (layers, final norm, LM head), the
+    visible cache slots [0, pos] (averaged over the steps from `context`),
+    the slot written and x in and out."""
+    weights = (n_layers * dims.layer_params_bytes(2) + 2 * dims.hidden
+               + 2 * dims.hidden * dims.vocab)
+    kv_read = n_layers * 2 * batch * (context + (steps + 1) / 2) * dims.kv_dim * 2
+    kv_write = n_layers * 2 * batch * dims.kv_dim * 2
+    return weights + kv_read + kv_write + 2 * 2 * batch * dims.hidden
+
+
+def _phase18bc(dev, smi):
+    """18b. the reduced Llama-3.1-8B sweep, its fit and a full-depth point;
+    18c. one int8 decode point beside bf16."""
+    import dataclasses
+
+    import torch
+
+    from inferno_tpu_torch.models import llama_block, profiles
+    from inferno_tpu_torch.tools import profile_gpu as pg
+
+    dims = llama_block.MODEL_PRESETS["llama-3.1-8b"]
+    args = pg.build_parser().parse_args(P18_SWEEP)
+    decode, prefill, mixed = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for n_layers in P18_DEPTHS:
+        pg.profile_depth(llama_block, dims, n_layers, args, decode, prefill, mixed,
+                         lambda: None, set(), dev)
+    sweep_s = time.perf_counter() - t0
+    dims_meta = dataclasses.asdict(dims)
+    dims_meta["n_layers_full"] = dims_meta.pop("n_layers")
+    meta = {"model": "llama-3.1-8b", "dims": dims_meta, "device": pg.device_meta(dev),
+            "dtype": "bfloat16", "weight_dtype": "bfloat16",
+            "decode_context": args.context, "timing": "cuda-events"}
+    raw = {"meta": meta, "decode": decode, "prefill": prefill, "mixed": mixed}
+    doc = profiles.build_profile_json(
+        raw, "h100-1", n_chips=1, hbm_per_chip_gb=meta["device"]["total_memory_gb"],
+        weight_bytes_per_param=2.0)
+    fit, dp, pp = doc["fit"], doc["decodeParms"], doc["prefillParms"]
+    print(f"  {smi}")
+    print(f"  18b sweep (depths {list(P18_DEPTHS)}, {len(decode)} decode + {len(mixed)} mixed "
+          f"+ {len(prefill)} prefill points) in {sweep_s:.1f} s")
+    print(f"  llama-3.1-8b h100-1 fit: alpha {dp['alpha']} ms, beta {dp['beta']} ms, gamma "
+          f"{pp['gamma']} ms, delta {pp['delta']} ms, maxBatchSize {doc['maxBatchSize']} "
+          f"(atTokens {doc['atTokens']}, {meta['device']['total_memory_gb']} GiB); layer "
+          f"linearity r2 decode {fit['decode_layer_linearity_r2']}, mixed "
+          f"{fit.get('mixed_layer_linearity_r2')}, prefill {fit['prefill_layer_linearity_r2']}; "
+          f"{fit['ttft_calibration']}, {fit['ttft_fit']}")
+    times = [s["step_ms"] for s in decode + mixed] + [s["prefill_ms"] for s in prefill]
+    ok = (all(math.isfinite(v) and v > 0 for v in times) and dp["alpha"] > 0 and pp["delta"] > 0 and doc["maxBatchSize"] > 0
+          and fit["decode_layer_linearity_r2"] > P18_MIN_R2)
+    if not ok:
+        raise AssertionError(f"18b: implausible sweep or fit: {doc}")
+    for s in decode:
+        bound = _decode_step_bytes(dims, s["n_layers"], s["batch"], args.context,
+                                   args.decode_steps) / PEAK_BYTES_PER_S * 1e3
+        print(f"  decode L={s['n_layers']} B={s['batch']} context {args.context}: "
+              f"{s['step_ms']:.4f} ms, byte bound {bound:.4f} ms at 3.35 TB/s "
+              f"({100 * bound / s['step_ms']:.1f}%)")
+
+    # one decode point at full depth against the depth line's extrapolation
+    full = pg.build_parser().parse_args(["--decode-batches", str(P18_FULL_BATCH)])
+    full.mixed_batches, full.prefill_batches = [], []
+    full_pts = []
+    pg.profile_depth(llama_block, dims, dims.n_layers, full, full_pts, [], [],
+                     lambda: None, set(), dev)
+    c, m, _, _ = profiles._per_group_line_fits(decode, "step_ms", ("batch",))[(P18_FULL_BATCH,)]
+    pred = c + m * dims.n_layers
+    got = full_pts[0]["step_ms"]
+    bound = _decode_step_bytes(dims, dims.n_layers, P18_FULL_BATCH, args.context,
+                               args.decode_steps) / PEAK_BYTES_PER_S * 1e3
+    print(f"  full depth L={dims.n_layers} B={P18_FULL_BATCH}: {got:.4f} ms measured, "
+          f"{pred:.4f} ms extrapolated from depths {list(P18_DEPTHS)} "
+          f"({100 * (got - pred) / pred:+.2f}%); byte bound {bound:.4f} ms "
+          f"({100 * bound / got:.1f}%)")
+    print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # 18c. int8 weights, cast to bf16 before each product in eager torch
+    q8 = pg.build_parser().parse_args(["--decode-batches", "16", "--weight-dtype", "int8"])
+    q8.mixed_batches, q8.prefill_batches = [], []
+    q8_pts = []
+    pg.profile_depth(llama_block, dims, 2, q8, q8_pts, [], [], lambda: None, set(), dev)
+    bf16_ms = next(s["step_ms"] for s in decode if s["n_layers"] == 2 and s["batch"] == 16)
+    print(f"  18c decode L=2 B=16: int8 weights (eager dequant) {q8_pts[0]['step_ms']:.4f} ms "
+          f"vs bf16 {bf16_ms:.4f} ms ({q8_pts[0]['step_ms'] / bf16_ms:.2f}x)")
+    if not math.isfinite(q8_pts[0]["step_ms"]):
+        raise AssertionError(f"18c: {q8_pts}")
+
+
+def _phase18(smi):
+    """18. the transformer profiling blocks on the card."""
+    import torch
+
+    dev = torch.device("cuda")
+    # the products accumulate in float32, as the reference's
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    print("18. transformer profiling blocks: (a) depth-2 parity at full width")
+    _phase18a(dev)
+    print("18. (b) reduced llama-3.1-8b sweep through profile_gpu, (c) int8")
+    _phase18bc(dev, smi)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0, help="seed of phase 12's loads")
@@ -2159,6 +2395,10 @@ def main() -> int:
     _stamp("phase 16 done")
     _phase17()
     _stamp("phase 17 done")
+
+    # 18. the transformer profiling blocks at full width
+    _phase18(smi)
+    _stamp("phase 18 done")
 
     replaces = "inferno_tpu/ops/pallas_queueing.py:84"
     print(smi)  # again near the end: a reader of the output's tail sees the card

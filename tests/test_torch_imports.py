@@ -4,8 +4,9 @@ chip_smoke.py, imports jax, flax, optax or the JAX package inferno_tpu.
 Checked twice: statically (an AST scan of every import statement) and
 dynamically (subprocesses in which those imports are blocked size a fleet,
 run three reconcile cycles, run the planner and a recorded `--trace`
-replay, and run the twin CLI and an emulator scenario through the port
-on the CPU). The scan
+replay, run the twin CLI and an emulator scenario, and run the profiling
+blocks, a tiny profiler sweep and a profile build through the port on
+the CPU). The scan
 also holds every import to what the card's installation has: the
 standard library, torch, numpy, PyYAML, triton, and the port itself.
 """
@@ -215,6 +216,48 @@ def test_twin_and_emulator_run_with_jax_blocked():
     """)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok")
+
+
+def test_profiling_blocks_run_with_jax_blocked(tmp_path):
+    """One tiny decode of each profiling block on the CPU, a tiny
+    `profile_gpu --device cpu` sweep, and the profile build of its raw
+    and of the committed TPU raws, with jax blocked."""
+    proc = _run_blocked(f"""
+        import json, torch
+        from inferno_tpu_torch.models import gemma_block, llama_block, profiles
+        from inferno_tpu_torch.tools import build_profiles, profile_gpu
+
+        for blk, dims in ((llama_block, llama_block.LlamaDims(
+                hidden=32, n_heads=4, n_kv_heads=2, head_dim=8, ffn=64, vocab=64)),
+                          (gemma_block, gemma_block.GemmaDims(
+                hidden=32, n_heads=4, n_kv_heads=2, head_dim=8, ffn=64, vocab=64,
+                sliding_window=4, query_pre_attn_scalar=8.0))):
+            params = blk.init_stack(torch.Generator().manual_seed(0), dims, 2, "float32",
+                                    device="cpu")
+            caches = [torch.zeros(2, 2, 12, 8) for _ in range(4)]
+            s, x, _ = blk.make_decode_fn(dims, 2, 3)(params, torch.ones(2, 1, 32) * 0.1,
+                                                     caches, 8)
+            assert torch.isfinite(s) and x.shape == (2, 1, 32)
+
+        profile_gpu.ALL_PRESETS["tiny"] = llama_block.LlamaDims(
+            hidden=32, n_heads=4, n_kv_heads=2, head_dim=8, ffn=64, vocab=64, n_layers=4)
+        out = {str(tmp_path)!r} + "/raw.json"
+        profile_gpu.main(["--model", "tiny", "--device", "cpu", "--out", out, "--iters", "1",
+                          "--decode-steps", "2", "--context", "8", "--decode-batches", "1", "2",
+                          "--prefill-batches", "1", "--prefill-tokens", "4",
+                          "--mixed-batches", "1", "2", "--mixed-tokens", "4",
+                          "--layer-depths", "1", "2", "--target-ms", "0.1"])
+        doc = profiles.build_profile_json(json.load(open(out)), "cpu-1", hbm_per_chip_gb=2.0,
+                                          weight_bytes_per_param=2.0)
+        assert doc["fit"]["ttft_calibration"] == "mixed-step", doc["fit"]
+        built = build_profiles.build_model("llama-3.1-8b")
+        assert len(built) == 12 and len(build_profiles.build_cross_model("llama-3.2-1b")) == 3
+        assert not any(m.split(".")[0] in ("jax", "inferno_tpu")
+                       for m, v in sys.modules.items() if v is not None)
+        print("ok", doc["maxBatchSize"], len(built))
+    """)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1].startswith("ok")
 
 
 def test_kernel_module_imports_without_nvcc_or_cuda(tmp_path):
