@@ -143,6 +143,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    decode point's share of its byte bound, one full-depth (32-layer)
    point against the depth line's extrapolation, the peak device memory;
    (c) one int8 decode point (L=2, B=16, eager dequant) beside bf16.
+19. the controller over real sockets on backend cuda, every MiniProm
+   scraped by hand: (a) the port's MiniApiServer behind RestKubeClient,
+   an emulated engine over HTTP (2 s of closed-loop load), the port's
+   Reconciler with direct_scale false publishing gauges on its
+   MetricsServer, MiniProm scraping /metrics, ExternalMetricsAdapter and
+   HpaEmulator enacting them through /scale: the loaded cycle launches
+   both kernels (counted against the buckets it dispatched) and the HPA
+   scales 1 -> N, the idle cycle and the HPA bring it back to 1; (b) the
+   disaggregated loop (a prefill/decode emulated engine, JetStream
+   vocabulary, a LeaderWorkerSet of 3-slice groups): the loaded cycle's
+   tandem bucket launches the tandem plan's kernels (10 stats_kernel, 2
+   bisect_kernel) and the groups scale out atomically, then back to one;
+   (c) a 200-variant fleet_cluster collected from fleet_targets over
+   MiniProm HTTP (seven arrival rates): at most 10 Prometheus queries a
+   cycle, and the decisions on cuda equal one cycle on backend torch on
+   the CPU under ROADMAP's ±1 rule; host ms a cycle and its spans printed;
+20. backend native (the port's C++ solver, built with g++ from
+   inferno_tpu_torch/native/queueing.cc; a failed build fails the phase)
+   beside backend cuda on phase 4's 10k edge fleet: lane by lane equal
+   feasibility, replicas within ±1, rate_star and itl within 5e-3
+   relative; the solve's host ms (plans to results) and a cold full
+   calculate_fleet + solve_unlimited pass of each, with the card's name
+   and power limit and os.cpu_count().
 
 The card's name and power limit (nvidia-smi) are printed first and again
 before the kernels line.
@@ -2141,6 +2164,408 @@ def _phase18(smi):
     _phase18bc(dev, smi)
 
 
+# phase 19: the controller over real sockets on backend cuda. (a) the
+# production actuation path (gauges -> MiniProm -> adapter -> HPA ->
+# /scale) around an emulated engine under load, then idle; (b) the
+# disaggregated loop's atomic LeaderWorkerSet groups; (c) a 200-variant
+# fleet cycle collected over MiniProm HTTP, against backend torch on the CPU
+P19_LOAD_S = 2.0
+P19_VARIANTS = 200
+P19_QUERY_BUDGET = 10  # tests/test_fleet_cycle.py:433
+# phase 20: the C++ solver on the host beside the card, on phase 4's fleet
+P20_RTOL = 5e-3  # tests/test_native.py:80-103
+
+
+def _post_load(port, model, seconds, concurrency=6):
+    """Closed-loop OpenAI-style completions from `concurrency` threads."""
+    import threading
+    import urllib.request
+
+    stop_at = time.time() + seconds
+    url = f"http://127.0.0.1:{port}/v1/chat/completions"
+    body = json.dumps({"model": model, "messages": [{"role": "user", "content": "x " * 64}],
+                       "max_tokens": 32}).encode()
+
+    def worker():
+        while time.time() < stop_at:
+            req = urllib.request.Request(url, data=body,
+                                         headers={"Content-Type": "application/json"})
+            try:
+                urllib.request.urlopen(req, timeout=30).read()
+            except OSError:
+                return
+
+    threads = [threading.Thread(target=worker) for _ in range(concurrency)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+
+
+def _hand_prom(targets):
+    """A MiniProm scraped by hand: its HTTP endpoint serves, no scraper
+    thread runs, one scrape is taken here and the phase takes the others;
+    a 60 s window holds every rate still between them."""
+    import threading
+
+    from inferno_tpu_torch.emulator.miniprom import MiniProm
+
+    prom = MiniProm(targets, window_seconds=60.0)
+    threading.Thread(target=prom._httpd.serve_forever, daemon=True).start()
+    prom.scrape_once()
+    return prom
+
+
+def _post_json(url, body):
+    import urllib.request
+
+    req = urllib.request.Request(url, method="POST", data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    urllib.request.urlopen(req).read()
+
+
+def _spans(report):
+    return ", ".join(f"{c.name} {c.duration_ms:.1f}" for c in report.trace.children)
+
+
+def _counted_cycle(rec):
+    """One run_cycle with both counters zeroed just before and read just
+    after, and the buckets it dispatched: (report, ms, launches, spy)."""
+    from inferno_tpu_torch.ops import cuda_queueing
+
+    cuda_queueing.LAUNCHES = 0
+    cuda_queueing.BISECT_LAUNCHES = 0
+    with _SlotSpy() as spy:
+        report, ms = _timed(rec.run_cycle)
+    launches = (cuda_queueing.LAUNCHES, cuda_queueing.BISECT_LAUNCHES)
+    if report.errors or not report.optimization_ok:
+        raise AssertionError(f"cycle failed: {report.errors[:3]}")
+    if launches != spy.expected():
+        raise AssertionError(f"launches {launches} != the dispatched buckets' "
+                             f"{spy.expected()} ({spy.plan()})")
+    return report, ms, launches, spy
+
+
+def _phase19a():
+    """19a. gauges -> MiniProm -> adapter -> HPA -> /scale, on backend cuda."""
+    from inferno_tpu_torch.controller import Reconciler, ReconcilerConfig
+    from inferno_tpu_torch.controller.kube import RestKubeClient
+    from inferno_tpu_torch.controller.metrics import MetricsEmitter, MetricsServer
+    from inferno_tpu_torch.controller.promclient import HttpPromClient, PromConfig
+    from inferno_tpu_torch.emulator.engine import EngineProfile
+    from inferno_tpu_torch.emulator.server import EmulatorServer
+    from inferno_tpu_torch.parallel import reset_fleet_state
+    from inferno_tpu_torch.testing import MiniApiServer
+    from inferno_tpu_torch.testing.hpa import ExternalMetricsAdapter, HpaEmulator
+
+    model, ns, cfg_ns, name = "meta-llama/Llama-3.1-8B", "workloads", "inferno-system", "llama"
+    print("19a. MiniApiServer + RestKubeClient, an emulated engine over HTTP scraped by "
+          "MiniProm, the port's Reconciler (backend cuda, direct_scale false) publishing "
+          "gauges on its MetricsServer, MiniProm -> ExternalMetricsAdapter -> HpaEmulator "
+          "-> /scale")
+    api = MiniApiServer().start()
+    engine = EmulatorServer(model_id=model, time_scale=0.02, profile=EngineProfile(
+        alpha=18.0, beta=0.3, gamma=5.0, delta=0.02, max_batch=64))
+    engine.start()
+    emitter = MetricsEmitter()
+    msrv = MetricsServer(emitter.registry, port=0, host="127.0.0.1")
+    msrv.start()
+    prom = _hand_prom([(f"http://127.0.0.1:{engine.port}/metrics", {"namespace": ns}),
+                       f"http://127.0.0.1:{msrv.port}/metrics"])
+    try:
+        cms = f"{api.url}/api/v1/namespaces/{cfg_ns}/configmaps"
+        _post_json(cms, {"metadata": {"name": "accelerator-unit-costs", "namespace": cfg_ns},
+                         "data": {"v5e-4": json.dumps({"cost": 10.0})}})
+        _post_json(cms, {"metadata": {"name": "service-classes-config", "namespace": cfg_ns},
+                         "data": {"premium.yaml": (
+                             "name: Premium\npriority: 1\ndata:\n"
+                             f"  - model: {model}\n    slo-ttft: 500\n    slo-tpot: 24\n")}})
+        _post_json(cms, {"metadata": {"name": "inferno-autoscaler-config",
+                                      "namespace": cfg_ns}, "data": {}})
+        _post_json(f"{api.url}/apis/llmd.ai/v1alpha1/namespaces/{ns}/variantautoscalings", {
+            "apiVersion": "llmd.ai/v1alpha1", "kind": "VariantAutoscaling",
+            "metadata": {"name": name, "namespace": ns, "labels": {
+                "inference.optimization/acceleratorName": "v5e-4"}},
+            "spec": {"modelID": model, "sloClassRef": {
+                "name": "service-classes-config", "key": "Premium"},
+                "modelProfile": {"accelerators": [{
+                    "acc": "v5e-4", "accCount": 1, "maxBatchSize": 64, "atTokens": 128,
+                    "perfParms": {"decodeParms": {"alpha": "18.0", "beta": "0.3"},
+                                  "prefillParms": {"gamma": "5.0", "delta": "0.02"}}}]}}})
+        _post_json(f"{api.url}/apis/apps/v1/namespaces/{ns}/deployments", {
+            "metadata": {"name": name, "namespace": ns}, "spec": {"replicas": 1},
+            "status": {"replicas": 1, "readyReplicas": 1}})
+        kube = RestKubeClient(base_url=api.url, token="", namespace=cfg_ns)
+        reset_fleet_state()
+        rec = Reconciler(kube, HttpPromClient(PromConfig(base_url=prom.url, allow_http=True)),
+                         ReconcilerConfig(config_namespace=cfg_ns, compute_backend="cuda",
+                                          direct_scale=False), emitter=emitter)
+        hpa = HpaEmulator(kube=kube, adapter=ExternalMetricsAdapter(prom=HttpPromClient(
+            PromConfig(base_url=prom.url, allow_http=True))), namespace=ns, name=name)
+
+        _post_load(engine.port, model, P19_LOAD_S)
+        prom.scrape_once()
+        report, ms, launches, spy = _counted_cycle(rec)
+        va = kube.get_variant_autoscaling(ns, name)
+        desired = va.status.desired_optimized_alloc.num_replicas
+        before = kube.get_deployment(ns, name)["spec"]["replicas"]
+        prom.scrape_once()  # the gauges reach the scrape store
+        applied = hpa.step()
+        scaled = kube.get_deployment(ns, name)["spec"]["replicas"]
+        print(f"  loaded cycle {ms:.1f} ms (spans {_spans(report)}): "
+              f"{va.status.current_alloc.load.arrival_rate:.1f} req/min observed, desired "
+              f"{desired}; deployment {before} before the HPA, {scaled} after (metric "
+              f"{hpa.last_metric}); launches stats_kernel {launches[0]}, bisect_kernel "
+              f"{launches[1]} ({spy.plan()}); {report.prom_queries} queries")
+        if not (launches[0] and launches[1]):
+            raise AssertionError(f"19a: loaded cycle launches {launches}")
+        if desired <= 1 or before != 1 or applied != desired or scaled != desired:
+            raise AssertionError(f"19a: scale-out: desired {desired}, deployment {before} "
+                                 f"-> {scaled}, HPA applied {applied}")
+        # idle: the engine's counters stand still between two fresh scrapes
+        prom.history.clear()
+        prom.scrape_once()
+        prom.scrape_once()
+        report2, ms2, launches2, _ = _counted_cycle(rec)
+        idle = kube.get_variant_autoscaling(ns, name).status.desired_optimized_alloc
+        prom.scrape_once()
+        applied2 = hpa.step()
+        final = kube.get_deployment(ns, name)["spec"]["replicas"]
+        cur = kube.get_variant_autoscaling(ns, name).status.current_alloc.num_replicas
+        print(f"  idle cycle {ms2:.1f} ms (spans {_spans(report2)}): desired "
+              f"{idle.num_replicas} (the controller saw {cur} current), HPA -> {final}; "
+              f"launches {launches2}")
+        if idle.num_replicas != 1 or applied2 != 1 or final != 1 or cur != desired:
+            raise AssertionError(f"19a: scale-in: desired {idle.num_replicas}, HPA "
+                                 f"{applied2}, deployment {final}, current {cur}")
+        rec.close()
+    finally:
+        prom.stop()
+        msrv.stop()
+        engine.stop()
+        api.stop()
+    reset_fleet_state()
+
+
+def _phase19b():
+    """19b. the disaggregated loop: tandem sizing on the card, atomic groups."""
+    from inferno_tpu_torch.config.types import DecodeParms, DisaggSpec, PrefillParms
+    from inferno_tpu_torch.controller import InMemoryCluster, Reconciler, ReconcilerConfig
+    from inferno_tpu_torch.controller.crd import (
+        ACCELERATOR_LABEL,
+        AcceleratorProfile,
+        ConfigMapKeyRef,
+        VariantAutoscaling,
+        VariantAutoscalingSpec,
+    )
+    from inferno_tpu_torch.controller.promclient import HttpPromClient, PromConfig
+    from inferno_tpu_torch.emulator.disagg import DisaggEngine, DisaggProfile
+    from inferno_tpu_torch.emulator.server import EmulatorServer
+    from inferno_tpu_torch.parallel import reset_fleet_state
+
+    model, ns, cfg_ns, name = "meta-llama/Llama-3.1-8B", "workloads", "inferno-system", "disagg"
+    spec = DisaggSpec(prefill_slices=1, decode_slices=2, prefill_max_batch=8)
+    prof = DisaggProfile(alpha=18.0, beta=0.3, gamma=5.0, delta=0.02, prefill_max_batch=8,
+                         decode_max_batch=64, prefill_engines=1, decode_engines=2,
+                         kv_transfer_ms=2.0)
+    print("19b. disaggregated loop: a prefill/decode emulated engine (JetStream vocabulary) "
+          "over HTTP -> MiniProm -> the port's Reconciler (backend cuda) -> LeaderWorkerSet "
+          "groups")
+    cluster = InMemoryCluster()
+    cluster.set_configmap(cfg_ns, "accelerator-unit-costs", {
+        "v5e-4": json.dumps({"cost": 10.0})})
+    cluster.set_configmap(cfg_ns, "service-classes-config", {"premium.yaml": (
+        "name: Premium\npriority: 1\ndata:\n"
+        f"  - model: {model}\n    slo-ttft: 500\n    slo-tpot: 24\n")})
+    cluster.set_configmap(cfg_ns, "inferno-autoscaler-config", {})
+    cluster.add_variant_autoscaling(VariantAutoscaling(
+        name=name, namespace=ns, labels={ACCELERATOR_LABEL: "v5e-4"},
+        spec=VariantAutoscalingSpec(
+            model_id=model,
+            slo_class_ref=ConfigMapKeyRef(name="service-classes-config", key="Premium"),
+            accelerators=[AcceleratorProfile(
+                acc="v5e-4", acc_count=1, max_batch_size=64, at_tokens=128,
+                decode_parms=DecodeParms(alpha=prof.alpha, beta=prof.beta),
+                prefill_parms=PrefillParms(gamma=prof.gamma, delta=prof.delta),
+                disagg=spec)],
+        ),
+    ))
+    cluster.add_leader_worker_set(ns, name, replicas=1, size=spec.slices_per_unit)
+    srv = EmulatorServer(model_id=model, engine_name="jetstream",
+                         engine=DisaggEngine(prof, time_scale=0.02))
+    srv.start()
+    prom = _hand_prom([(f"http://127.0.0.1:{srv.port}/metrics", {"namespace": ns})])
+    try:
+        reset_fleet_state()
+        rec = Reconciler(cluster, HttpPromClient(PromConfig(base_url=prom.url,
+                                                            allow_http=True)),
+                         ReconcilerConfig(config_namespace=cfg_ns, compute_backend="cuda",
+                                          direct_scale=True, engine="jetstream",
+                                          profile_correction=False))
+        _post_load(srv.port, model, P19_LOAD_S)
+        prom.scrape_once()
+        report, ms, launches, spy = _counted_cycle(rec)
+        units = cluster.get_variant_autoscaling(ns, name).status.desired_optimized_alloc
+        lws = cluster.get_leader_worker_set(ns, name)
+        tan = [s for s in spy.slots if s.kind == "tan" and s.cached is None]
+        print(f"  loaded cycle {ms:.1f} ms (spans {_spans(report)}): {units.num_replicas} "
+              f"units -> LWS replicas {lws['spec']['replicas']} of size "
+              f"{lws['spec']['leaderWorkerTemplate']['size']} ({cluster.pod_count(ns, name)} "
+              f"pods); launches stats_kernel {launches[0]}, bisect_kernel {launches[1]} "
+              f"({spy.plan()})")
+        if not tan or launches != (STATS_LAUNCHES_PER_BUCKET["tan"] * len(tan),
+                                   BISECT_LAUNCHES_PER_BUCKET * len(tan)):
+            raise AssertionError(f"19b: the tandem plan's kernels: {launches}, {spy.plan()}")
+        if (units.num_replicas <= 1 or lws["spec"]["replicas"] != units.num_replicas
+                or lws["spec"]["leaderWorkerTemplate"]["size"] != spec.slices_per_unit
+                or cluster.pod_count(ns, name) != units.num_replicas * spec.slices_per_unit):
+            raise AssertionError(f"19b: scale-out: {units.num_replicas} units, {lws}")
+        prom.history.clear()
+        prom.scrape_once()
+        prom.scrape_once()
+        report2, ms2, launches2, _ = _counted_cycle(rec)
+        lws = cluster.get_leader_worker_set(ns, name)
+        print(f"  idle cycle {ms2:.1f} ms: LWS replicas {lws['spec']['replicas']}; "
+              f"launches {launches2}")
+        if lws["spec"]["replicas"] != 1:
+            raise AssertionError(f"19b: scale-in: {lws['spec']}")
+        rec.close()
+    finally:
+        prom.stop()
+        srv.stop()
+    reset_fleet_state()
+
+
+def _phase19c():
+    """19c. a 200-variant fleet cycle over MiniProm HTTP: cuda vs torch on the CPU."""
+    from inferno_tpu_torch.controller import Reconciler, ReconcilerConfig
+    from inferno_tpu_torch.controller.promclient import HttpPromClient, PromConfig
+    from inferno_tpu_torch.parallel import reset_fleet_state
+    from inferno_tpu_torch.testing.fleet import FLEET_NS, fleet_cluster, fleet_targets
+
+    n = P19_VARIANTS
+    print(f"19c. {n}-variant fleet_cluster, fleet_targets scraped by MiniProm over HTTP, "
+          "backend cuda against backend torch on the CPU")
+    # seven arrival rates over the fleet: the i-th target of each rate's set
+    by_rate = {r: fleet_targets(n, arrival_rps=r)
+               for r in (2.0, 10.0, 25.0, 40.0, 60.0, 80.0, 120.0)}
+    rates = sorted(by_rate)
+    targets = [by_rate[rates[i % len(rates)]][i] for i in range(n)]
+    prom = _hand_prom([(t, {"namespace": FLEET_NS}) for t in targets])
+    try:
+        # the targets' counters advance with wall time at their rates: the
+        # clusters' construction spaces the second scrape from the first
+        clusters = {backend: fleet_cluster(n) for backend in ("cuda", "torch")}
+        prom.scrape_once()
+        records = {}
+        for backend, device in (("cuda", None), ("torch", "cpu")):
+            reset_fleet_state()
+            rec = Reconciler(clusters[backend], HttpPromClient(PromConfig(
+                base_url=prom.url, allow_http=True)), ReconcilerConfig(
+                compute_backend=backend, compute_device=device, keep_accelerator=False))
+            if backend == "cuda":
+                report, ms, launches, _ = _counted_cycle(rec)
+            else:
+                report, ms = _timed(rec.run_cycle)
+                launches = None
+                if report.errors or not report.optimization_ok:
+                    raise AssertionError(f"19c torch: {report.errors[:3]}")
+            records[backend] = report.decisions
+            print(f"  backend {backend}{' (cpu)' if device else ''}: {ms:.1f} ms host a "
+                  f"cycle, spans (ms) {_spans(report)}; {report.prom_queries} queries; "
+                  f"{report.variants_applied} applied"
+                  + (f"; launches stats_kernel {launches[0]}, bisect_kernel {launches[1]}"
+                     if launches else ""))
+            if report.prom_queries > P19_QUERY_BUDGET or report.variants_applied != n:
+                raise AssertionError(f"19c {backend}: {report.prom_queries} queries, "
+                                     f"{report.variants_applied} applied")
+            if launches is not None and not (launches[0] and launches[1]):
+                raise AssertionError(f"19c: launches {launches}")
+            rec.close()
+        boundary = _same_records(records["cuda"], records["torch"], "19c cuda vs torch")
+        moved = sum(r.replicas > 1 for r in records["cuda"])
+        print(f"  decisions: cuda as torch on the CPU ({boundary} ±1 boundary variants; "
+              f"{moved} of {n} above one replica)")
+        if moved < n // 4:
+            raise AssertionError(f"19c: only {moved} variants scaled")
+    finally:
+        prom.stop()
+    reset_fleet_state()
+
+
+def _phase19():
+    """19. the controller over real sockets on backend cuda."""
+    os.environ["LOG_LEVEL"] = "warn"
+    _phase19a()
+    _phase19b()
+    _phase19c()
+
+
+def _phase20(smi):
+    """20. backend native (the C++ solver, on the host) beside backend cuda
+    on phase 4's 10k edge fleet."""
+    import numpy as np
+
+    from inferno_tpu_torch import native
+    from inferno_tpu_torch.core.system import System
+    from inferno_tpu_torch.parallel import build_fleet, build_tandem_fleet, reset_fleet_state
+    from inferno_tpu_torch.parallel.fleet import _check_backend, _solve_or_replay
+    from inferno_tpu_torch.testing.fleet import fleet_system_spec
+
+    print(f"20. backend native beside backend cuda, 10k edge fleet; {smi}; "
+          f"os.cpu_count() {os.cpu_count()}")
+    t0 = time.perf_counter()
+    native._load()  # builds with g++ (raises if it cannot)
+    print(f"  native library {os.path.relpath(native._lib_path(), ROOT)} built/loaded in "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+    reset_fleet_state()
+    spec = fleet_system_spec(10000, **FLEET_KW)
+    system = System(spec)
+    for server in system.servers.values():
+        server.all_allocations = {}
+    plan, tandem = build_fleet(system), build_tandem_fleet(system)
+    out, ms = {}, {}
+    dev = _check_backend("cuda", None)
+    for backend, device in (("native", None), ("cuda", dev), ("native", None), ("cuda", dev)):
+        reset_fleet_state()  # no solve memo: each pass solves
+        res, t = _timed(lambda: _solve_or_replay(plan, tandem, device, backend))
+        out[backend] = res
+        ms.setdefault(backend, []).append(t)
+    lanes = 0
+    for label, a, b in (("agg", out["native"][0], out["cuda"][0]),
+                        ("tan", out["native"][1], out["cuda"][1])):
+        a = [np.asarray(f) for f in a]
+        b = [np.asarray(f) for f in b]
+        fa, fb = a[0].astype(bool), b[0].astype(bool)
+        if not np.array_equal(fa, fb):
+            raise AssertionError(f"20 {label}: feasibility differs in {int((fa != fb).sum())} lanes")
+        reps = np.abs(a[3][fa].astype(np.int64) - b[3][fa].astype(np.int64))
+        rs = np.abs(a[2][fa] - b[2][fa]) / np.abs(a[2][fa])
+        itl = np.abs(a[5][fa] - b[5][fa]) / np.abs(a[5][fa])
+        print(f"  {label}: {len(fa)} lanes, {int(fa.sum())} feasible; replicas differ in "
+              f"{int((reps != 0).sum())} (max {int(reps.max(initial=0))}); rate_star max rel "
+              f"{rs.max(initial=0):.3g}, itl max rel {itl.max(initial=0):.3g}")
+        if reps.max(initial=0) > 1 or rs.max(initial=0) > P20_RTOL or itl.max(initial=0) > P20_RTOL:
+            raise AssertionError(f"20 {label}: native vs cuda outside the tolerances")
+        lanes += len(fa)
+    # a cold full pass through each backend (INCREMENTAL_CYCLE=0 for both:
+    # native never takes the incremental cycle; the fleet state is reset
+    # before each)
+    os.environ["INCREMENTAL_CYCLE"] = "0"
+    passes = {}
+    for backend in ("native", "cuda", "native", "cuda"):
+        reset_fleet_state()
+        passes.setdefault(backend, []).append(_size_fleet(System(spec), backend)[1])
+    del os.environ["INCREMENTAL_CYCLE"]
+    reset_fleet_state()
+    print(f"  {lanes} lanes solved (plans to results, host ms, two passes each): native "
+          f"{', '.join(f'{t:.1f}' for t in ms['native'])}, cuda "
+          f"{', '.join(f'{t:.1f}' for t in ms['cuda'])}; cold calculate_fleet + "
+          f"solve_unlimited (INCREMENTAL_CYCLE=0): native {', '.join(f'{t:.1f}' for t in passes['native'])}, "
+          f"cuda {', '.join(f'{t:.1f}' for t in passes['cuda'])}; {smi}; "
+          f"os.cpu_count() {os.cpu_count()}")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0, help="seed of phase 12's loads")
@@ -2399,6 +2824,12 @@ def main() -> int:
     # 18. the transformer profiling blocks at full width
     _phase18(smi)
     _stamp("phase 18 done")
+
+    # 19. the controller over real sockets; 20. native beside the card
+    _phase19()
+    _stamp("phase 19 done")
+    _phase20(smi)
+    _stamp("phase 20 done")
 
     replaces = "inferno_tpu/ops/pallas_queueing.py:84"
     print(smi)  # again near the end: a reader of the output's tail sees the card

@@ -23,18 +23,20 @@ controller.go:516-582):
   METRICS_TLS_CERT_PATH/KEY_PATH  serve /metrics over TLS, certs reloaded
                                 on rotation; plain HTTP when unset
   HEALTH_PORT                   (default 8081; liveness/readiness probes)
-  COMPUTE_BACKEND               auto | cuda | torch | scalar
+  COMPUTE_BACKEND               auto | cuda | torch | native | scalar
                                 (default auto: cuda when a CUDA card is
                                 present, else startup fails — the CPU is
                                 an explicit choice, COMPUTE_BACKEND=torch
-                                COMPUTE_DEVICE=cpu; "scalar" is the
-                                per-variant parity oracle, reached only
-                                explicitly or via USE_TPU_FLEET=false; the
-                                reference's tpu/tpu-pallas/jax/native are
-                                rejected)
+                                COMPUTE_DEVICE=cpu, or native: the C++
+                                solver on the host, which needs g++ and no
+                                card; "scalar" is the per-variant parity
+                                oracle, reached only explicitly or via
+                                USE_TPU_FLEET=false; the reference's
+                                tpu/tpu-pallas/jax are rejected)
   COMPUTE_DEVICE                torch device the fleet is sized and the
                                 surrogate trained on (default unset = the
-                                CUDA card; "cpu" with COMPUTE_BACKEND=torch)
+                                CUDA card; "cpu" with COMPUTE_BACKEND=torch,
+                                or with native/scalar for the surrogate)
   DIRECT_SCALE                  true|false (default false; HPA otherwise)
   LEADER_ELECT                  true|false (default false; lease-based
                                 election for multi-replica deployments)

@@ -15,12 +15,14 @@ marks OptimizationReady=False on all VAs and retries next cycle.
 Port of `inferno_tpu/controller/reconciler.py`, verbatim apart from its
 imports and these changes:
 
-* the backend set: `compute_backend` is `auto|cuda|torch|scalar`, with
-  `compute_device` (None = the CUDA card). `auto` resolves to `cuda` when
-  a card is present and raises otherwise (`COMPUTE_BACKEND=torch
-  COMPUTE_DEVICE=cpu` is the explicit CPU choice); the reference's
-  `tpu`, `tpu-pallas`, `jax` and `native` are rejected at config time,
-  and its TPU probe does not come over;
+* the backend set: `compute_backend` is `auto|cuda|torch|native|scalar`,
+  with `compute_device` (None = the CUDA card). `auto` resolves to `cuda`
+  when a card is present and raises otherwise (`COMPUTE_BACKEND=torch
+  COMPUTE_DEVICE=cpu` and `COMPUTE_BACKEND=native` are the explicit CPU
+  choices; `native` is the C++ solver of `inferno_tpu_torch.native`, which
+  needs g++ and is never auto-selected); the reference's `tpu`,
+  `tpu-pallas` and `jax` are rejected at config time, and its TPU probe
+  does not come over;
 * the solve span sizes through `inferno_tpu_torch.parallel.
   calculate_fleet(system, backend, device=compute_device, ...)`: on
   backend `cuda` every stationary solve runs on `stats_kernel` and every
@@ -117,9 +119,9 @@ from inferno_tpu_torch.controller.constants import (  # noqa: E402,F401 (re-expo
 )
 
 
-BACKENDS = ("auto", "cuda", "torch", "scalar")
-# the reference's backends, which need jax, a TPU or its C++ solver
-REFERENCE_ONLY_BACKENDS = ("tpu", "tpu-pallas", "jax", "native")
+BACKENDS = ("auto", "cuda", "torch", "native", "scalar")
+# the reference's backends, which need jax or a TPU
+REFERENCE_ONLY_BACKENDS = ("tpu", "tpu-pallas", "jax")
 
 
 def resolve_compute_backend() -> str:
@@ -145,23 +147,25 @@ class ReconcilerConfig:
     # candidate-sizing backend: "auto" (resolved once at Reconciler init
     # and logged: "cuda" when a card is present, else an error), "cuda"
     # (the hand-written kernels), "torch" (their plain torch versions, on
-    # `compute_device`), or "scalar" (the per-variant pure-Python loop,
+    # `compute_device`), "native" (the C++ solver on the host; needs g++,
+    # never auto-selected), or "scalar" (the per-variant pure-Python loop,
     # kept as a PARITY ORACLE — never auto-selected)
     compute_backend: str = "auto"
     # the device the fleet is sized on: None = the CUDA card; "cpu" only
-    # with backend "torch" (or "scalar", where it places the corrector's
-    # surrogate training)
+    # with backend "torch" (or "native"/"scalar", which size on the host:
+    # there it places the corrector's surrogate training)
     compute_device: str | None = None
 
     def __post_init__(self) -> None:
         if self.compute_backend in REFERENCE_ONLY_BACKENDS:
             raise ValueError(
                 f"compute_backend {self.compute_backend!r} belongs to the JAX "
-                f"reference (inferno_tpu); the port takes auto|cuda|torch|scalar"
+                f"reference (inferno_tpu); the port takes "
+                f"auto|cuda|torch|native|scalar"
             )
         if self.compute_backend not in BACKENDS:
             raise ValueError(
-                f"compute_backend must be auto|cuda|torch|scalar, "
+                f"compute_backend must be auto|cuda|torch|native|scalar, "
                 f"got {self.compute_backend!r}"
             )
         if self.scale_down_stabilization_s < 0:
@@ -1372,9 +1376,9 @@ class Reconciler:
                 )
                 if to_size is None or to_size:
                     if self.config.compute_backend != "scalar":
-                        # both batched backends (cuda, torch) route
-                        # through the vectorized fleet pipeline; "scalar"
-                        # is the explicit parity oracle
+                        # the batched backends (cuda, torch, native)
+                        # route through the vectorized fleet pipeline;
+                        # "scalar" is the explicit parity oracle
                         from inferno_tpu_torch.parallel import calculate_fleet
 
                         # SIZING_CACHE and INCREMENTAL_CYCLE are

@@ -16,6 +16,9 @@ through `ops/csrc/bisect_kernel.cu`; "torch" runs their plain torch
 versions on whatever device it is given (the CPU tests use it). Both
 backends take the incremental dirty-set cycle (`parallel/incremental.py`)
 by default, and both paths dispatch through one function, `solve_slots`.
+"native" sizes both lane kinds with the C++ solver of `native/` on the
+host in f64, on no device; like the reference's, it never takes the
+incremental cycle, so every call is a full pass.
 
 The cycle profiler's counters (`obs/profiler.py`) keep the reference's
 names. `jit_dispatches` counts the dispatches of `solve_slots` (one per
@@ -33,9 +36,8 @@ one full sizing of every bucket through `solve_slots` (the kernels on
 backend "cuda"), and its per-row replica fold, transition penalties and
 segment argmin stay host numpy, as in the reference.
 
-Left out against the reference, each for a later slice of the port:
-sharding lanes over several devices (`shard_map`) and the native C++
-backend.
+Left out against the reference, for a later slice of the port:
+sharding lanes over several devices (`shard_map`).
 """
 
 from __future__ import annotations
@@ -84,7 +86,7 @@ from inferno_tpu_torch.parallel.mesh import fleet_device
 
 _K_PAD = 128  # head (max-batch) grid padded to this floor
 
-BACKENDS = ("cuda", "torch")
+BACKENDS = ("cuda", "torch", "native")
 
 
 @dataclasses.dataclass
@@ -648,7 +650,7 @@ _solve_memo: dict = {}
 def _solve_or_replay(
     plan: FleetPlan | None,
     tandem: TandemPlan | None,
-    device: torch.device,
+    device: torch.device | None,
     backend: str,
 ) -> tuple[FleetResult | None, FleetResult | None]:
     """Solve both plans through the selected backend, replaying the
@@ -666,9 +668,17 @@ def _solve_or_replay(
         _prof.count("solve_memo_hits")
         return memo["results"]
     _prof.count("solve_memo_misses")
-    result, tresult = _solve_all(
-        plan, tandem, device, DEFAULT_BISECT_ITERS, backend == "cuda"
-    )
+    if backend == "native":
+        # the C++ solver covers both lane kinds on the host, in f64 (its
+        # own bisection depth): no device and no kernel on this path
+        from inferno_tpu_torch.native import fleet_size_native, tandem_size_native
+
+        result = fleet_size_native(plan.params) if plan is not None else None
+        tresult = tandem_size_native(tandem.params) if tandem is not None else None
+    else:
+        result, tresult = _solve_all(
+            plan, tandem, device, DEFAULT_BISECT_ITERS, backend == "cuda"
+        )
     _solve_memo["last"] = {
         "backend": backend, "device": device, "plan": plan,
         "tandem": tandem, "results": (result, tresult),
@@ -917,11 +927,14 @@ def _zero_load_dict(system: System, server) -> dict[str, Allocation] | None:
     return out
 
 
-def _check_backend(backend: str, device) -> torch.device:
+def _check_backend(backend: str, device) -> torch.device | None:
     """Validate `backend` and resolve `device` (`fleet_device`): backend
-    "cuda" needs a CUDA device."""
+    "cuda" needs a CUDA device; backend "native" runs on the host and
+    resolves no device (None), whatever `device` says."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
+    if backend == "native":
+        return None
     device = fleet_device(device)
     if backend == "cuda" and device.type != "cuda":
         raise ValueError(
@@ -943,8 +956,9 @@ def calculate_fleet(
     """Replace System.calculate_all() with the batched fleet path.
 
     `backend` selects the stationary solve and the bisection: "cuda" (the
-    hand-written kernels, the default; needs a CUDA device) or "torch"
-    (their plain torch versions, on any device). `device=None` is the CUDA card and raises
+    hand-written kernels, the default; needs a CUDA device), "torch"
+    (their plain torch versions, on any device) or "native" (the C++
+    solver on the host, f64; `device` is ignored). `device=None` is the CUDA card and raises
     when there is none; the CPU is used only when asked for
     (`device="cpu"`, with backend "torch"). Returns the number of live
     lanes sized. Semantics match the scalar path: infeasible lanes
@@ -958,8 +972,8 @@ def calculate_fleet(
     unlimited solver constructs O(servers) Allocation objects, not
     O(lanes).
 
-    With INCREMENTAL_CYCLE on (the default) and no `only` subset, both
-    backends route through the incremental dirty-set cycle
+    With INCREMENTAL_CYCLE on (the default) and no `only` subset, the
+    "cuda" and "torch" backends route through the incremental dirty-set cycle
     (parallel/incremental.py): the snapshot's scan classifies every
     server, clean servers replay last cycle's results and allocations
     untouched, and only dirty lanes run a kernel — the full sizing
@@ -980,7 +994,12 @@ def calculate_fleet(
 
     from inferno_tpu_torch.parallel import incremental
 
-    if _incremental_enabled() and _snapshot_enabled() and only is None:
+    if (
+        _incremental_enabled()
+        and _snapshot_enabled()
+        and only is None
+        and backend != "native"
+    ):
         return incremental.incremental_cycle(
             system, device, backend, lam_tolerance, max_age_cycles,
             event_dirty=event_dirty,

@@ -26,12 +26,15 @@ Examples::
     python -m inferno_tpu_torch.planner --variants 500 --capacity-fraction 0.9 \
         --scenarios flash_crowd --seeds 200 --survival-percentile 99
 
-    # on a machine without a card: the plain torch path on the CPU
+    # on a machine without a card: the plain torch path on the CPU, or
+    # the C++ solver (needs g++)
     python -m inferno_tpu_torch.planner --backend torch --device cpu
+    python -m inferno_tpu_torch.planner --backend native
 
 Port of `inferno_tpu/planner/__main__.py`, verbatim apart from its
-imports and the backend: `--backend` is auto|cuda|torch and `--device`
-the device the fleet is sized on (default: the CUDA card). `auto` (and
+imports and the backend: `--backend` is auto|cuda|torch|native and
+`--device` the device the fleet is sized on (default: the CUDA card;
+ignored by `native`, the C++ solver on the host). `auto` (and
 PLANNER_BACKEND=auto) resolves to `cuda` when a card is present and
 raises otherwise; nothing falls back to the CPU unless asked.
 """
@@ -43,7 +46,7 @@ import json
 import sys
 
 
-_BACKENDS = ("auto", "cuda", "torch")
+_BACKENDS = ("auto", "cuda", "torch", "native")
 
 
 def _resolve_backend(requested: str) -> str:

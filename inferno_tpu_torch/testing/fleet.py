@@ -3,11 +3,11 @@
 Port copy of `inferno_tpu/testing/fleet.py`: `SIZING_SHAPES`,
 `fleet_system_spec`, `perturb_loads`, `fleet_capacity`, `fleet_model`,
 `fleet_variant`, and the reconcile-cycle fixtures `fleet_cluster` (an
-`InMemoryCluster` of N variants) and `fleet_fake_prom` (a FakeProm
-answering the collector's grouped and per-variant queries from a static
-table), verbatim apart from the imports (and `fleet_capacity`'s backend
-and device). The MiniProm scrape targets (`fleet_targets`) go with the
-emulator slice.
+`InMemoryCluster` of N variants), `fleet_targets` (MiniProm scrape
+targets whose counters advance with wall time) and `fleet_fake_prom` (a
+FakeProm answering the collector's grouped and per-variant queries from
+a static table), verbatim apart from the imports (and `fleet_capacity`'s
+backend and device).
 
 `fleet_system_spec` builds an N-variant SystemSpec spanning the sizing
 edge lanes — aggregated and tandem (disagg) shapes, zero-load variants,
@@ -245,6 +245,50 @@ def fleet_cluster(
         cluster.add_variant_autoscaling(va)
         cluster.add_deployment(namespace, fleet_variant(i), replicas=replicas)
     return cluster
+
+
+def fleet_targets(
+    n_variants: int,
+    arrival_rps: float = 5.0,
+    in_tokens: float = 128.0,
+    out_tokens: float = 128.0,
+    ttft_s: float = 0.05,
+    itl_s: float = 0.02,
+    running: float = 3.0,
+):
+    """MiniProm scrape targets: one exposition callable per variant whose
+    counters advance with WALL time at the requested rates, so rate()
+    reads arrival_rps regardless of the scrape cadence. Pass to
+    MiniProm([...], ...) with a namespace relabel, e.g.::
+
+        MiniProm([(t, {"namespace": FLEET_NS}) for t in fleet_targets(50)])
+    """
+    t0 = time.time()
+
+    def make(i: int):
+        model = fleet_model(i)
+
+        def render() -> str:
+            count = arrival_rps * (time.time() - t0)
+            sel = f'{{model_name="{model}"}}'
+            return "\n".join([
+                f"vllm:num_requests_running{sel} {running}",
+                f"vllm:request_success_total{sel} {count}",
+                f"vllm:request_prompt_tokens_sum{sel} {in_tokens * count}",
+                f"vllm:request_prompt_tokens_count{sel} {count}",
+                f"vllm:request_generation_tokens_sum{sel} {out_tokens * count}",
+                f"vllm:request_generation_tokens_count{sel} {count}",
+                f"vllm:time_to_first_token_seconds_sum{sel} {ttft_s * count}",
+                f"vllm:time_to_first_token_seconds_count{sel} {count}",
+                f"vllm:time_per_output_token_seconds_sum{sel} {itl_s * count}",
+                f"vllm:time_per_output_token_seconds_count{sel} {count}",
+                f"vllm:num_requests_max{sel} 64",
+            ]) + "\n"
+
+        render.__name__ = f"{model}/0"  # `up` instance label
+        return render
+
+    return [make(i) for i in range(n_variants)]
 
 
 def fleet_fake_prom(

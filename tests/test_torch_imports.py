@@ -4,8 +4,9 @@ chip_smoke.py, imports jax, flax, optax or the JAX package inferno_tpu.
 Checked twice: statically (an AST scan of every import statement) and
 dynamically (subprocesses in which those imports are blocked size a fleet,
 run three reconcile cycles, run the planner and a recorded `--trace`
-replay, run the twin CLI and an emulator scenario, and run the profiling
-blocks, a tiny profiler sweep and a profile build through the port on
+replay, run the twin CLI and an emulator scenario, run the profiling
+blocks, a tiny profiler sweep and a profile build, and close the HPA loop
+over the port's MiniApiServer on backend native, all through the port on
 the CPU). The scan
 also holds every import to what the card's installation has: the
 standard library, torch, numpy, PyYAML, triton, and the port itself.
@@ -30,6 +31,13 @@ def _sources():
     files = sorted((ROOT / "inferno_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
     return files
+
+
+def test_scan_covers_the_socket_fixtures_and_native():
+    files = set(_sources())
+    for rel in ("testing/apiserver.py", "testing/hpa.py", "testing/fleet.py",
+                "native/__init__.py"):
+        assert ROOT / "inferno_tpu_torch" / rel in files, rel
 
 
 def _imported_modules(path: pathlib.Path):
@@ -124,6 +132,80 @@ def test_port_reconciles_with_jax_blocked():
             assert report.profile["counters"]["prom_queries"] > 0
             applied.append(report.variants_applied)
         assert applied == [8, 8, 8], applied
+        assert not any(m.split(".")[0] in ("jax", "inferno_tpu")
+                       for m, v in sys.modules.items() if v is not None)
+        print("ok", applied)
+    """, extra_env={"LOG_LEVEL": "warn"})
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
+
+
+def test_socket_loop_on_native_runs_with_jax_blocked():
+    """The port's MiniApiServer, RestKubeClient, MetricsServer, MiniProm,
+    ExternalMetricsAdapter and HpaEmulator close one HPA loop around a
+    reconcile cycle on backend native (the port's C++ solver)."""
+    proc = _run_blocked("""
+        import json, urllib.request
+        from inferno_tpu_torch.controller import Reconciler, ReconcilerConfig
+        from inferno_tpu_torch.controller.kube import RestKubeClient
+        from inferno_tpu_torch.controller.metrics import MetricsEmitter, MetricsServer
+        from inferno_tpu_torch.controller.promclient import HttpPromClient, PromConfig
+        from inferno_tpu_torch.emulator.miniprom import MiniProm
+        from inferno_tpu_torch.testing import MiniApiServer
+        from inferno_tpu_torch.testing.fleet import fleet_fake_prom
+        from inferno_tpu_torch.testing.hpa import ExternalMetricsAdapter, HpaEmulator
+
+        api = MiniApiServer().start()
+
+        def post(path, body):
+            req = urllib.request.Request(api.url + path, method="POST",
+                data=json.dumps(body).encode(),
+                headers={"Content-Type": "application/json"})
+            urllib.request.urlopen(req).read()
+
+        cms = "/api/v1/namespaces/inferno-system/configmaps"
+        post(cms, {"metadata": {"name": "accelerator-unit-costs"},
+                   "data": {"v5e-4": json.dumps({"cost": 10.0})}})
+        post(cms, {"metadata": {"name": "service-classes-config"},
+                   "data": {"p.yaml": "name: Premium\\npriority: 1\\ndata:\\n"
+                            "  - model: m/a\\n    slo-ttft: 500\\n    slo-tpot: 24\\n"}})
+        post(cms, {"metadata": {"name": "inferno-autoscaler-config"}, "data": {}})
+        post("/apis/llmd.ai/v1alpha1/namespaces/ns/variantautoscalings", {
+            "apiVersion": "llmd.ai/v1alpha1", "kind": "VariantAutoscaling",
+            "metadata": {"name": "a", "namespace": "ns", "labels": {
+                "inference.optimization/acceleratorName": "v5e-4"}},
+            "spec": {"modelID": "m/a", "sloClassRef": {
+                "name": "service-classes-config", "key": "Premium"},
+                "modelProfile": {"accelerators": [{
+                    "acc": "v5e-4", "accCount": 1, "maxBatchSize": 64,
+                    "atTokens": 128, "perfParms": {
+                        "decodeParms": {"alpha": "18.0", "beta": "0.3"},
+                        "prefillParms": {"gamma": "5.0", "delta": "0.02"}}}]}}})
+        post("/apis/apps/v1/namespaces/ns/deployments", {
+            "metadata": {"name": "a", "namespace": "ns"}, "spec": {"replicas": 1},
+            "status": {"replicas": 1, "readyReplicas": 1}})
+        kube = RestKubeClient(base_url=api.url, token="", namespace="inferno-system")
+        emitter = MetricsEmitter()
+        msrv = MetricsServer(emitter.registry, port=0, host="127.0.0.1")
+        msrv.start()
+        rows = {("m/a", "ns"): {"running": 3.0, "arrival_rps": 40.0,
+                "in_tokens": 128.0, "out_tokens": 128.0, "ttft_s": 0.05,
+                "itl_s": 0.02, "max_batch": 64.0}}
+        rec = Reconciler(kube, fleet_fake_prom(rows), ReconcilerConfig(
+            compute_backend="native", compute_device="cpu"), emitter=emitter)
+        report = rec.run_cycle()
+        assert report.optimization_ok and not report.errors, report.errors
+        prom = MiniProm([f"http://127.0.0.1:{msrv.port}/metrics"],
+                        scrape_interval=3600.0, window_seconds=60.0)
+        prom.start()
+        prom.scrape_once()
+        hpa = HpaEmulator(kube=kube, adapter=ExternalMetricsAdapter(
+            prom=HttpPromClient(PromConfig(base_url=prom.url, allow_http=True))),
+            namespace="ns", name="a")
+        applied = hpa.step()
+        assert applied and applied > 1, applied
+        assert kube.get_deployment("ns", "a")["spec"]["replicas"] == applied
+        prom.stop(); msrv.stop(); api.stop()
         assert not any(m.split(".")[0] in ("jax", "inferno_tpu")
                        for m, v in sys.modules.items() if v is not None)
         print("ok", applied)

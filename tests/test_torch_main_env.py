@@ -86,11 +86,18 @@ def test_use_tpu_fleet_false_selects_scalar(clean_env):
     assert p_main.reconciler_config_from_env().compute_backend == "cuda"
 
 
-@pytest.mark.parametrize("backend", ["tpu", "tpu-pallas", "jax", "native"])
+@pytest.mark.parametrize("backend", ["tpu", "tpu-pallas", "jax"])
 def test_reference_only_backends_are_rejected(clean_env, backend):
     clean_env.setenv("COMPUTE_BACKEND", backend)
     with pytest.raises(ValueError, match="reference"):
         p_main.reconciler_config_from_env()
+
+
+def test_native_backend_is_accepted(clean_env):
+    """The C++ solver is the port's too: COMPUTE_BACKEND=native maps to
+    the config unchanged (it needs g++, never a card)."""
+    clean_env.setenv("COMPUTE_BACKEND", "native")
+    assert p_main.reconciler_config_from_env().compute_backend == "native"
 
 
 def test_unknown_backend_is_rejected():
