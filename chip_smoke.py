@@ -7,8 +7,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: compiles both kernels (ops/csrc/stats_kernel.cu, the stationary
-   solve, and ops/csrc/bisect_kernel.cu, the fused bisection) with nvcc,
-   one process per source, into one library in build/kernels/;
+   solve, and ops/csrc/bisect_kernel.cu, the fused bisection, once per
+   metric) with nvcc, one process per object, all at once, into one
+   library in build/kernels/;
 3. kernels against their plain torch versions on the card, on synthetic
    cases (P x K sweep over the register widths and a strided width,
    saturated rates, empty tails, caps and batches beyond the grid):
@@ -24,10 +25,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    kernels' launch counters checked (4 stationary solves and 2 bisections
    per aggregated bucket, 10 and 2 per tandem bucket), and the decisions
    checked for sanity; then, at every bucket of that path, both kernels
-   against their plain versions, their per-launch device times beside
-   their bounds, and the per-step composition on the stationary-solve
-   kernel against the fused bisection (lanes whose lam_star differs in
-   any bit are counted);
+   against their plain versions and their per-launch device times beside
+   their bounds; for each of the 12 bisections its depth, launch shape
+   (registers, spill, blocks an SM, waves), mean steps run, its time
+   beside the fixed schedule (depth 1, no exit, every padded lane: the
+   kernel's schedule before rounds and exits) taken in turns, its time
+   at every depth, and its bound counted by each lane's steps to its
+   fixed point (the 32-step bound beside it); and the fused
+   bisection against the per-step composition on the stationary-solve
+   kernel, which must agree in every bit of every lane (4c), with the 12
+   launches' sum below the fixed schedule's;
 5. the same fleet on the plain torch versions on the card: identical
    decisions (accelerator exactly, replicas under the ±1 boundary rule);
 6. timings of the full path (INCREMENTAL_CYCLE=0, as measured before
@@ -438,11 +445,27 @@ def _bound(P, K):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _bisect_bound(case, n_iters):
-    """The least time for one bisection: its rows (two for tandem ITL)
-    and per-lane inputs read once, its outputs written once; and
-    n_iters stationary solves a row, OPS_PER_ELEMENT f32 operations an
-    element each."""
+def _bisect_bound(case, needed, real):
+    """The least time for one bisection: the rows (two for tandem ITL) and
+    per-lane inputs of its `real` lanes read once (the pad lanes past them
+    copy lane 0), every lane's outputs written once; and, on the real
+    lanes, each lane's steps to its fixed point (`needed`, from
+    `_bisect_steps_needed` on the plain version: what this run's data
+    needs), one stationary solve a row a step, OPS_PER_ELEMENT f32
+    operations an element each."""
+    rows = 2 if case.gd is not None else 1
+    P, K = case.gp.cml.shape
+    c = case.consts.shape[0]
+    nbytes = real * (rows * K * 4 + 4 * (5 + c + 3 * rows)) + P * 5
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    steps = int(needed[:real].sum())
+    t_ops = steps * rows * K * OPS_PER_ELEMENT / PEAK_F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _bisect_bound_all_steps(case, n_iters):
+    """The bound as counted before the early exit: n_iters steps on every
+    lane, pad lanes included (printed beside `_bisect_bound`)."""
     rows = 2 if case.gd is not None else 1
     P, K = case.gp.cml.shape
     c = case.consts.shape[0]
@@ -450,6 +473,79 @@ def _bisect_bound(case, n_iters):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = n_iters * rows * P * K * OPS_PER_ELEMENT / PEAK_F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _bisect_launch(kind, k, width, real, case, n_iters, tally):
+    """One bisection of the main path at its bucket's shape (`width` lanes,
+    the first `real` of them real): the kernel on the main path's schedule
+    (the depth `bisect` picks, the early exit, the real lanes) against its
+    plain version (into `tally`) and, bit for bit, against the per-step
+    composition on stats_kernel, as the fixed schedule is too (depth 1, no
+    exit, every padded lane); the launch shapes; the steps it ran; its
+    device time beside the fixed schedule's, in turns, and at every depth; its
+    bounds. Returns the launch's record."""
+    import torch
+
+    from inferno_tpu_torch.ops import cuda_queueing as cq
+    from inferno_tpu_torch.ops import queueing as q
+
+    dev = case.lam_min.device
+    depth = cq.bisect_depth(case.metric, k, real, dev)
+    steps = torch.empty(width, dtype=torch.int32, device=dev)
+    got = cq.bisect(case, n_iters, real_lanes=real, steps_out=steps)
+    off = tally.add(q._bisect_plain(case, n_iters), got)
+    ref = q._bisect_plain(case, n_iters, solve=cq.solve_stats)
+
+    def differ(out):
+        lam, ok = out
+        return int(((lam.view(torch.int32) != ref[0].view(torch.int32)) | (ok != ref[1])).sum())
+
+    bit_diff = differ(got)
+    if differ(cq.bisect(case, n_iters, depth=1, early_exit=False)):
+        raise AssertionError("the fixed schedule differs from the per-step composition")
+    needed = q._bisect_steps_needed(case, n_iters)
+    b_ms, b_by = _bisect_bound(case, needed, real)
+    b_all_ms, b_all_by = _bisect_bound_all_steps(case, n_iters)
+    shapes = [cq.bisect_shape(case.metric, k, d, dev)
+              for d in range(1, cq.BISECT_MAX_DEPTH + 1)]
+    shape, shape1 = shapes[depth - 1], shapes[0]
+
+    def new():
+        return cq.bisect(case, n_iters, real_lanes=real)
+
+    def old():
+        return cq.bisect(case, n_iters, depth=1, early_exit=False)
+
+    turns = [_device_ms(fn, 20)[0] for fn in (old, new, new, old)]
+    new_ms, old_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+    by_depth = {
+        d: _device_ms(lambda: cq.bisect(case, n_iters, real_lanes=real, depth=d), 20)[0]
+        for d in range(1, cq.BISECT_MAX_DEPTH + 1)
+    }
+    s_ms = _profiled_device_ms(
+        lambda: q._bisect_plain(case, n_iters, solve=cq.solve_stats), 3)
+    pl_ms = _profiled_device_ms(lambda: q._bisect_plain(case, n_iters), 3)
+    ran = float(steps[:real].float().mean())
+    need = float(needed[:real].float().mean())
+    print(f"bucket {kind} K={k} P={width} ({real} real) {METRIC_NAMES[case.metric]}: "
+          f"depth {depth} ({shape.threads} threads a block, "
+          f"{shape.lanes_per_block if shape.cluster == 1 else f'a cluster of {shape.cluster}'}"
+          f"{' lanes a block' if shape.cluster == 1 else ' blocks a lane'}, {shape.registers} "
+          f"registers, {shape.spill_bytes} bytes of spill, {shape.blocks_per_sm} blocks an SM, "
+          f"{cq.waves(real, shape.resident_lanes)} wave(s); lanes resident at depths 1-4: "
+          f"{'/'.join(str(s.resident_lanes) for s in shapes)}); the fixed schedule: depth 1, "
+          f"{shape1.registers} registers, {cq.waves(width, shape1.resident_lanes)} wave(s) of "
+          f"{width} lanes; steps run {ran:.2f} a lane (to the fixed points {need:.2f}); "
+          f"bisect_kernel {new_ms * 1e3:.2f} us, the fixed schedule {old_ms * 1e3:.2f} us (in "
+          f"turns: {', '.join(f'{t * 1e3:.2f}' for t in turns)}); by depth "
+          f"{', '.join(f'{d}: {t * 1e3:.2f}' for d, t in by_depth.items())} us; per-step "
+          f"composition on stats_kernel {s_ms * 1e3:.2f} us, plain {pl_ms * 1e3:.2f} us "
+          f"(device time); bound {b_ms * 1e3:.2f} us ({b_by}; all 32 steps on every lane: "
+          f"{b_all_ms * 1e3:.2f} us, {b_all_by}); {off} lanes outside {LAM_RTOL:g}, "
+          f"{bit_diff} lanes differ in a bit from the per-step composition")
+    return dict(kind=kind, K=k, P=width, real=real, metric=case.metric, depth=depth,
+                ms=new_ms, old_ms=old_ms, by_depth=by_depth, steps_ms=s_ms, plain_ms=pl_ms,
+                bound_ms=b_ms, bound_by=b_by, bound_all_ms=b_all_ms, bit_diff=bit_diff)
 
 
 def _size_fleet(system, backend):
@@ -2696,7 +2792,6 @@ def main() -> int:
     per_bisect = []
     max_abs = 0.0
     bucket_tally = _LamTally()
-    bit_diff = bit_lanes = 0
     for kind, k, sub, idx, width, _ in slots:
         lam, grid = _bucket_case(kind, k, sub, dev)
         got = cuda_queueing.solve_stats(lam, grid)
@@ -2717,32 +2812,25 @@ def main() -> int:
 
         params = (q.fleet_params_from_numpy(sub, dev) if kind == "agg"
                   else q.tandem_params_from_numpy(sub, dev))
+        real = len(idx)
         for case in _bisect_cases(kind, params, k, cuda_queueing.solve_stats):
-            got = cuda_queueing.bisect(case, n_iters)
-            off = bucket_tally.add(q._bisect_plain(case, n_iters), got)
-            steps = q._bisect_plain(case, n_iters, solve=cuda_queueing.solve_stats)
-            if not torch.equal(steps[1], got[1]):
-                raise AssertionError("fused and per-step bisections disagree on feasibility")
-            diff = int((steps[0].view(torch.int32) != got[0].view(torch.int32)).sum())
-            bit_diff += diff
-            bit_lanes += width
-            f_ms, f_enq = _device_ms(lambda: cuda_queueing.bisect(case, n_iters), 20)
-            s_ms = _profiled_device_ms(
-                lambda: q._bisect_plain(case, n_iters, solve=cuda_queueing.solve_stats), 3)
-            pl_ms = _profiled_device_ms(lambda: q._bisect_plain(case, n_iters), 3)
-            b_ms, b_by = _bisect_bound(case, n_iters)
-            per_bisect.append(dict(kind=kind, K=k, P=width, metric=case.metric, ms=f_ms,
-                                   steps_ms=s_ms, plain_ms=pl_ms, bound_ms=b_ms,
-                                   bound_by=b_by))
-            print(f"bucket {kind} K={k} P={width} {METRIC_NAMES[case.metric]}: "
-                  f"bisect_kernel {f_ms * 1e3:.2f} us, per-step composition on "
-                  f"stats_kernel {s_ms * 1e3:.2f} us, plain {pl_ms * 1e3:.2f} us (device "
-                  f"time), bound {b_ms * 1e3:.2f} us ({b_by}); {off} lanes outside "
-                  f"{LAM_RTOL:g}, {diff} lanes differ in a bit from the per-step "
-                  f"composition (host enqueue of the timed runs: {f_enq:.1f} ms)")
+            per_bisect.append(_bisect_launch(kind, k, width, real, case, n_iters, bucket_tally))
     bucket_tally.check("bisect_kernel vs plain, main-path buckets")
+    bit_diff = sum(b["bit_diff"] for b in per_bisect)
+    bit_lanes = sum(b["P"] for b in per_bisect)
     print(f"fused vs per-step bisection on stats_kernel, main-path buckets: {bit_diff} of "
-          f"{bit_lanes} lanes' lam_star differ in any bit")
+          f"{bit_lanes} lanes differ in any bit (lam_star or feasibility)")
+    if bit_diff:
+        raise AssertionError("the fused bisection differs from the per-step composition")
+    new_sum = sum(b["ms"] for b in per_bisect)
+    old_sum = sum(b["old_ms"] for b in per_bisect)
+    print(f"bisect_kernel, the {len(per_bisect)} launches of a pass: {new_sum * 1e3:.2f} us, "
+          f"the fixed schedule {old_sum * 1e3:.2f} us in turns in this run; bounds "
+          f"{sum(b['bound_ms'] for b in per_bisect) * 1e3:.2f} us (steps to the fixed "
+          f"points), {sum(b['bound_all_ms'] for b in per_bisect) * 1e3:.2f} us (all steps); "
+          f"on {smi}")
+    if new_sum >= old_sum:
+        raise AssertionError("the bisections take no less time than the fixed schedule")
     # the reported shapes: the bucket with the most bytes (the largest cml),
     # the bisection with the largest bound
     top = max(per_bucket, key=lambda b: b["P"] * b["K"])

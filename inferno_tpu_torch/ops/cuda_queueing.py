@@ -10,14 +10,20 @@ Port of `inferno_tpu/ops/pallas_queueing.py`. Two hand-written kernels
 * `bisect(case, n_iters)` launches `csrc/bisect_kernel.cu`, a whole
   bisection of every lane (`ops.queueing.BisectCase`), with the contract
   of the plain `ops.queueing._bisect_plain`: it returns (lam_star f32[P],
-  feasible bool[P]).
+  feasible bool[P]). The kernel runs `depth` steps a round on 2^depth - 1
+  thread groups a lane (`choose_depth` picks the largest depth whose lanes
+  fit on the card in one wave, from `bisect_shape`), solves only the
+  bucket's `real_lanes` (the rest copy lane 0 and take its result), and
+  stops a lane's warp or block once all its lanes reach a fixed point;
+  every schedule gives the same bits.
 
 On a CUDA tensor each wrapper launches its kernel on the current stream,
 and raises on anything the kernel does not take or a launch CUDA refuses.
 On a CPU tensor it calls the plain torch version.
 
-The kernels are compiled with nvcc (one process per source, all started
-together) and linked into one shared library with a plain C interface,
+The kernels are compiled with nvcc (one process per object, all started
+together: stats_kernel.cu once, bisect_kernel.cu once per metric) and
+linked into one shared library with a plain C interface,
 loaded with ctypes at the first launch (never at import: this module
 imports without nvcc or CUDA). Like the reference's native build
 (inferno_tpu/native/__init__.py) the library is named by a sha256 of its
@@ -39,6 +45,7 @@ import subprocess
 import threading
 import time
 import uuid
+from typing import NamedTuple
 
 import torch
 
@@ -52,8 +59,13 @@ from inferno_tpu_torch.ops.queueing import (
 )
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-_KERNEL_SOURCES = ("stats_kernel.cu", "bisect_kernel.cu")
-_SOURCES = (*_KERNEL_SOURCES, "lane_solve.cuh", "fold_tail.cuh")
+# the objects of the library: (source, its own flags); the bisection is
+# built once per metric, so its instantiations compile in parallel
+_OBJECTS = (
+    ("stats_kernel.cu", ()),
+    *(("bisect_kernel.cu", (f"-DINFERNO_BISECT_METRIC={m}",)) for m in BISECT_METRICS),
+)
+_SOURCES = ("stats_kernel.cu", "bisect_kernel.cu", "lane_solve.cuh", "fold_tail.cuh")
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 BUILD_DIR = os.path.join(_REPO_ROOT, "build", "kernels")
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -89,6 +101,7 @@ def library_path() -> str:
         with open(os.path.join(_CSRC, name), "rb") as f:
             digest.update(name.encode() + b"\0" + f.read())
     digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(repr(_OBJECTS).encode())
     return os.path.join(BUILD_DIR, f"libinferno_kernels-{digest.hexdigest()[:16]}.so")
 
 
@@ -115,11 +128,11 @@ def build() -> str:
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.tmp.{os.getpid()}.{uuid.uuid4().hex[:8]}"
     nvcc = _nvcc()
-    objects = [f"{tmp}.{src}.o" for src in _KERNEL_SOURCES]
+    objects = [f"{tmp}.{i}.o" for i in range(len(_OBJECTS))]
     t0 = time.perf_counter()
     log = _nvcc_jobs([
-        [nvcc, *NVCC_FLAGS, "-I", _CSRC, "-c", "-o", obj, os.path.join(_CSRC, src)]
-        for src, obj in zip(_KERNEL_SOURCES, objects)
+        [nvcc, *NVCC_FLAGS, *flags, "-I", _CSRC, "-c", "-o", obj, os.path.join(_CSRC, src)]
+        for (src, flags), obj in zip(_OBJECTS, objects)
     ])
     log += _nvcc_jobs([[nvcc, *_ARCH, "-shared", "-o", tmp, *objects]])
     for obj in objects:
@@ -137,10 +150,13 @@ def _load() -> ctypes.CDLL:
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
             lib.inferno_stats_launch.argtypes = [ptr] * 6 + [i32, i32, ptr]
             lib.inferno_stats_launch.restype = i32
-            lib.inferno_bisect_launch.argtypes = (
-                [i32] + [ptr] * 16 + [i32, i32, i32, ctypes.c_float, ptr]
-            )
-            lib.inferno_bisect_launch.restype = i32
+            for m in BISECT_METRICS:
+                launch = getattr(lib, f"inferno_bisect_launch_{m}")
+                launch.argtypes = [ptr] * 17 + [i32] * 4 + [ctypes.c_float, i32, i32, ptr]
+                launch.restype = i32
+                shape = getattr(lib, f"inferno_bisect_shape_{m}")
+                shape.argtypes = [i32, i32, ptr]
+                shape.restype = i32
             lib.inferno_set_device.argtypes = [i32]
             lib.inferno_set_device.restype = i32
             lib.inferno_cuda_error_string.argtypes = [i32]
@@ -242,35 +258,157 @@ def _check_case(case: BisectCase, n_iters: int) -> tuple[int, int]:
     return p, k
 
 
-def bisect(case: BisectCase, n_iters: int):
-    """One bisection of every lane, `n_iters` fixed steps: (lam_star f32[P],
-    feasible bool[P]), as `ops.queueing._bisect_plain(case, n_iters)`."""
+# the deepest round bisect_kernel is built for (csrc/bisect_kernel.cu MAX_DEPTH)
+BISECT_MAX_DEPTH = 4
+
+
+class BisectShape(NamedTuple):
+    """How one instantiation of bisect_kernel (metric, K, depth) launches
+    on a card, from CUDA's own account of the compiled kernel."""
+
+    depth: int
+    threads: int  # a block's threads
+    lanes_per_block: int  # 1 where a lane spans a cluster
+    cluster: int  # blocks a lane spans (1: no cluster)
+    blocks_per_sm: int  # blocks an SM holds at once
+    resident_lanes: int  # lanes the card holds at once
+    registers: int  # a thread's
+    spill_bytes: int  # local memory a thread
+
+
+def resident_lanes(sm_count: int, blocks_per_sm: int, lanes_per_block: int,
+                   cluster: int, active_clusters: int) -> int:
+    """Lanes the card runs at once: those of every block its SMs hold, or,
+    where a lane spans a cluster, the clusters the card holds."""
+    if cluster > 1:
+        return active_clusters
+    return sm_count * blocks_per_sm * lanes_per_block
+
+
+def waves(lanes: int, resident: int) -> int:
+    """Waves of a launch of `lanes` lanes on a card that holds `resident`
+    at once (0 when it holds none: the launch cannot run)."""
+    if resident <= 0:
+        return 0
+    return -(-lanes // resident)
+
+
+def choose_depth(lanes: int, resident: dict[int, int]) -> int:
+    """The depth of a bisection of `lanes` lanes: the largest whose lanes
+    all fit on the card in one wave (`resident[d]`: lanes the card holds at
+    once at depth d), or 1 where none fits. A deeper round spends 2^d - 1
+    thread groups a lane to take d steps at once, which pays only while the
+    groups run side by side."""
+    fits = [d for d, cap in resident.items() if d >= 1 and lanes <= cap]
+    return max(fits, default=1)
+
+
+_shapes: dict = {}
+
+
+def bisect_shape(metric: int, k: int, depth: int, device) -> BisectShape:
+    """The launch shape of bisect_kernel at (metric, K, depth) on `device`
+    (a CUDA device; K outside the register widths takes the strided
+    body). Cached: a compiled kernel's shape does not change."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"bisect_kernel: a launch shape needs a CUDA device, got {device}")
+    if metric not in BISECT_METRICS:
+        raise ValueError(f"bisect_kernel: unknown metric {metric}")
+    _check_depth(depth)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    key = (index, metric, k if k in _REGISTER_WIDTHS else 0, depth)
+    if key not in _shapes:
+        lib = _load()
+        _set_device(lib, torch.device("cuda", index), "bisect_kernel")
+        out = (ctypes.c_int * 7)()
+        rc = getattr(lib, f"inferno_bisect_shape_{metric}")(k, depth, out)
+        _raise_on(lib, rc, f"bisect_kernel shape (metric {metric}, K={k}, depth {depth})")
+        threads, lanes_per_block, cluster, per_sm, clusters, regs, local = out
+        sm_count = torch.cuda.get_device_properties(index).multi_processor_count
+        _shapes[key] = BisectShape(
+            depth, threads, lanes_per_block, cluster, per_sm,
+            resident_lanes(sm_count, per_sm, lanes_per_block, cluster, clusters), regs, local,
+        )
+    return _shapes[key]
+
+
+def bisect_depth(metric: int, k: int, lanes: int, device) -> int:
+    """The depth `bisect` picks for `lanes` lanes at (metric, K) on `device`."""
+    return choose_depth(lanes, {
+        d: bisect_shape(metric, k, d, device).resident_lanes
+        for d in range(1, BISECT_MAX_DEPTH + 1)
+    })
+
+
+def _check_depth(depth) -> None:
+    if not isinstance(depth, int) or not 1 <= depth <= BISECT_MAX_DEPTH:
+        raise ValueError(
+            f"bisect_kernel: depth must be an int in 1..{BISECT_MAX_DEPTH}, got {depth!r}")
+
+
+def _check_schedule(p: int, real_lanes, depth, steps_out, device) -> int:
+    """The real lane count of a bisection; raises on a schedule the kernel
+    does not take."""
+    kernel = "bisect_kernel"
+    real = p if real_lanes is None else real_lanes
+    if not isinstance(real, int) or not (min(p, 1) <= real <= p):
+        raise ValueError(f"{kernel}: real_lanes must be an int in 1..{p}, got {real_lanes!r}")
+    if depth is not None:
+        _check_depth(depth)
+    if steps_out is not None and (
+        steps_out.dtype != torch.int32 or steps_out.shape != (p,)
+        or not steps_out.is_contiguous() or steps_out.device != device
+    ):
+        raise ValueError(f"{kernel}: steps_out must be a contiguous int32[{p}] tensor "
+                         f"on {device}")
+    return real
+
+
+def bisect(case: BisectCase, n_iters: int, *, real_lanes: int | None = None,
+           depth: int | None = None, early_exit: bool = True,
+           steps_out: torch.Tensor | None = None):
+    """One bisection of every lane, `n_iters` steps: (lam_star f32[P],
+    feasible bool[P]), as `ops.queueing._bisect_plain(case, n_iters)`.
+
+    `real_lanes` (default P): the lanes past it repeat lane 0's inputs
+    (the fleet's pad lanes) and take its result. `depth` (default: the
+    largest that fits in one wave, `bisect_depth`) is the steps a round;
+    `early_exit` lets a warp or block stop once its lanes reach their fixed
+    points. Neither changes a bit of the result. `steps_out`, an int32[P]
+    tensor, receives the steps each lane ran (n_iters on the CPU)."""
     global BISECT_LAUNCHES
     device = case.lam_min.device
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"bisect_kernel: unsupported device {device}")
     p, k = _check_case(case, n_iters)
+    real = _check_schedule(p, real_lanes, depth, steps_out, device)
     if device.type == "cpu":
+        if steps_out is not None:
+            steps_out.fill_(n_iters)
         return _bisect_plain(case, n_iters)
     lam = torch.empty(p, dtype=torch.float32, device=device)
     ok = torch.empty(p, dtype=torch.bool, device=device)
     if p == 0:
         return lam, ok
+    if depth is None:
+        depth = bisect_depth(case.metric, k, real, device)
     lib = _load()
     _set_device(lib, device, "bisect_kernel")
     gp = case.gp
     gd = case.gd if case.metric == TAN_ITL else None
-    rc = lib.inferno_bisect_launch(
-        case.metric,
+    rc = getattr(lib, f"inferno_bisect_launch_{case.metric}")(
         gp.cml.data_ptr(), gp.nmax.data_ptr(), gp.log_mu_full.data_ptr(),
         gp.tail_len.data_ptr(),
         *((gd.cml.data_ptr(), gd.nmax.data_ptr(), gd.log_mu_full.data_ptr(),
            gd.tail_len.data_ptr()) if gd is not None else (None,) * 4),
         case.consts.data_ptr(), case.lam_min.data_ptr(), case.lam_max.data_ptr(),
         case.target.data_ptr(), case.y_lo.data_ptr(), case.y_hi.data_ptr(),
-        lam.data_ptr(), ok.data_ptr(), p, k, n_iters, case.wait_margin,
+        lam.data_ptr(), ok.data_ptr(), None if steps_out is None else steps_out.data_ptr(),
+        p, real, k, n_iters, case.wait_margin, depth, int(bool(early_exit)),
         torch.cuda.current_stream(device).cuda_stream,
     )
-    _raise_on(lib, rc, f"bisect_kernel launch failed (metric {case.metric}, P={p}, K={k})")
+    _raise_on(lib, rc, f"bisect_kernel launch failed (metric {case.metric}, P={p}, K={k}, "
+                       f"depth {depth})")
     BISECT_LAUNCHES += 1
     return lam, ok

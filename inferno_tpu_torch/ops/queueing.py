@@ -8,7 +8,9 @@ a lane of a [P]-shaped batch and the whole fleet is sized at once:
   independent of the arrival rate and is hoisted out of the search;
 * bisection is a fixed 32-step loop (no early exit) over all lanes at
   once: a Python loop with one stationary solve a step in the plain
-  version (`_bisect_plain`), one launch of `bisect_kernel` on the card;
+  version (`_bisect_plain`), one launch of `bisect_kernel` on the card,
+  which takes several steps a round and stops at each lane's fixed point
+  with the same bits (`_bisect_speculative_plain` is its schedule);
 * the grid covers only the head states k = 0..max_batch; the queue tail
   beyond max_batch is a geometric series folded in closed form
   (`_fold_tail`), exactly as in the reference;
@@ -435,15 +437,92 @@ def _bisect_plain(case: BisectCase, n_iters: int, solve=_solve_stats):
     )
 
 
-def _bisect(case: BisectCase, n_iters: int, use_kernel: bool):
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return a.view(torch.int32) == b.view(torch.int32)
+
+
+def _bisect_speculative_plain(
+    case: BisectCase, n_iters: int, depth: int, early_exit: bool, solve=_solve_stats
+):
+    """The bisection kernel's schedule (csrc/bisect_kernel.cu) in torch:
+    rounds of `depth` steps (the last one takes what is left). A round
+    evaluates the metric at every midpoint of the binary tree its steps
+    could visit, each from the round's (lo, hi) by the sequential
+    expression down its path (heap order: node n's children are 2n+1, too
+    high, and 2n+2), then walks the path its decisions pick. With
+    `early_exit` a lane is done when a round's last step leaves (lo, hi)
+    unchanged in every bit (a fixed point), or from the start where its
+    result does not read the loop (infeasible, or clamped at lam_max); the
+    loop stops once every lane is done. Returns (lam_star, feasible,
+    steps): steps are each lane's steps up to the round it was done in
+    (n_iters without an exit), the kernel's at the granularity of one lane.
+    Bit for bit `_bisect_plain(case, n_iters, solve)`."""
+    feasible = case.target >= case.y_lo * (1.0 - 1e-6)
+    clamp_hi = case.target >= case.y_hi
+    lo, hi = case.lam_min, case.lam_max
+    done = (~feasible | clamp_hi) if early_exit else torch.zeros_like(feasible)
+    steps = torch.zeros_like(lo, dtype=_I32)
+    run = 0
+    while run < n_iters and not bool(done.all()):
+        d = min(depth, n_iters - run)
+        too_high = []
+        for h in range(1, 2**d):  # heap index of node h - 1
+            a, b = lo, hi
+            for i in range(h.bit_length() - 2, -1, -1):
+                mid = 0.5 * (a + b)
+                a, b = (mid, b) if (h >> i) & 1 else (a, mid)
+            too_high.append(_bisect_metric(case, 0.5 * (a + b), solve) > case.target)
+        too_high = torch.stack(too_high)
+        node = torch.zeros_like(lo, dtype=torch.int64)
+        for _ in range(d):
+            th = too_high.gather(0, node[None])[0]
+            mid = 0.5 * (lo + hi)
+            prev_lo, prev_hi = lo, hi
+            lo, hi = torch.where(th, lo, mid), torch.where(th, mid, hi)
+            node = 2 * node + torch.where(th, 1, 2)
+        run += d
+        steps = torch.where(done, steps, run)
+        if early_exit:
+            done = done | (_same_bits(lo, prev_lo) & _same_bits(hi, prev_hi))
+    lam = 0.5 * (lo + hi)
+    lam = torch.where(clamp_hi, case.lam_max, lam)
+    lam = torch.where(feasible, lam, case.lam_min)
+    return lam, feasible, steps
+
+
+def _bisect_steps_needed(case: BisectCase, n_iters: int, solve=_solve_stats) -> torch.Tensor:
+    """Each lane's steps to its fixed point, i32[P]: the steps of the
+    sequential bisection before the first one that leaves (lo, hi)
+    unchanged in every bit (n_iters if none does), 0 where the result does
+    not read the loop (infeasible, or clamped at lam_max). The work the
+    lane's answer needs, whatever schedule computes it."""
+    feasible = case.target >= case.y_lo * (1.0 - 1e-6)
+    fixed = ~feasible | (case.target >= case.y_hi)
+    needed = torch.where(fixed, 0, n_iters).to(_I32)
+    lo, hi = case.lam_min, case.lam_max
+    for it in range(n_iters):
+        if bool(fixed.all()):
+            break
+        mid = 0.5 * (lo + hi)
+        too_high = _bisect_metric(case, mid, solve) > case.target
+        new_lo, new_hi = torch.where(too_high, lo, mid), torch.where(too_high, mid, hi)
+        same = _same_bits(new_lo, lo) & _same_bits(new_hi, hi)
+        needed = torch.where(~fixed & same, it, needed)
+        fixed = fixed | same
+        lo, hi = new_lo, new_hi
+    return needed
+
+
+def _bisect(case: BisectCase, n_iters: int, use_kernel: bool, real_lanes: int | None = None):
     """(lam_star, feasible) of one bisection: the bisection kernel
     (ops.cuda_queueing.bisect, which itself takes the plain version for
-    CPU tensors) or the plain version."""
+    CPU tensors) or the plain version. `real_lanes`: the lanes past it are
+    pad copies of lane 0 (the kernel skips them)."""
     if not use_kernel:
         return _bisect_plain(case, n_iters)
     from inferno_tpu_torch.ops import cuda_queueing
 
-    return cuda_queueing.bisect(case, n_iters)
+    return cuda_queueing.bisect(case, n_iters, real_lanes=real_lanes)
 
 
 def offered_load(total_rate, target_tps, out_tokens, xp=torch):
@@ -556,19 +635,22 @@ def fleet_size(
     n_iters: int = DEFAULT_BISECT_ITERS,
     use_kernel: bool = False,
     ttft_tail_margin: float = SLO_MARGIN,
+    real_lanes: int | None = None,
 ) -> FleetResult:
     """Size every lane: max per-replica rate meeting TTFT/ITL/TPS targets,
     replica count for the offered load, cost, and the expected per-replica
     operating point (reference: pkg/analyzer/queueanalyzer.go:185-255 +
     pkg/core/allocation.go:126-157). TTFT targets bind at SLO_PERCENTILE
     via `ttft_tail_margin`. Runs 4 stationary solves and 2 bisections of
-    `n_iters` steps (one launch each on the kernels)."""
+    `n_iters` steps (one launch each on the kernels). `real_lanes`: the
+    lanes past it pad the bucket with copies of lane 0 (parallel.fleet),
+    which the bisection kernel gives lane 0's result without solving."""
     solve = _get_solver(use_kernel)
     grid = _make_grid(params, k_max)
     ttft_case, itl_case = _agg_bisections(params, grid, solve, ttft_tail_margin)
     lam_min, lam_max = ttft_case.lam_min, ttft_case.lam_max
-    lam_ttft, ok_ttft = _bisect(ttft_case, n_iters, use_kernel)
-    lam_itl, ok_itl = _bisect(itl_case, n_iters, use_kernel)
+    lam_ttft, ok_ttft = _bisect(ttft_case, n_iters, use_kernel, real_lanes)
+    lam_itl, ok_itl = _bisect(itl_case, n_iters, use_kernel, real_lanes)
     lam_ttft = torch.where(params.target_ttft > 0, lam_ttft, lam_max)
     ok_ttft = torch.where(params.target_ttft > 0, ok_ttft, True)
     lam_itl = torch.where(params.target_itl > 0, lam_itl, lam_max)
@@ -769,20 +851,21 @@ def tandem_fleet_size(
     n_iters: int = DEFAULT_BISECT_ITERS,
     use_kernel: bool = False,
     ttft_tail_margin: float = SLO_MARGIN,
+    real_lanes: int | None = None,
 ) -> FleetResult:
     """Size every disaggregated lane: batched equivalent of
     build_disagg_analyzer + DisaggAnalyzer.size + create_allocation's
     arithmetic. `k_max` must cover both stages' max batch. Runs 10
     stationary solves and 2 bisections of `n_iters` steps, the TTFT one a
     prefill solve a step, the ITL one a prefill and a decode solve (one
-    launch each on the kernels)."""
+    launch each on the kernels). `real_lanes` as for `fleet_size`."""
     solve = _get_solver(use_kernel)
     gp, gd, lam_min, lam_max = _tandem_grids(params, k_max)
     ttft_case, itl_case = _tandem_bisections(
         params, gp, gd, lam_min, lam_max, solve, ttft_tail_margin
     )
-    lam_ttft, ok_ttft = _bisect(ttft_case, n_iters, use_kernel)
-    lam_itl, ok_itl = _bisect(itl_case, n_iters, use_kernel)
+    lam_ttft, ok_ttft = _bisect(ttft_case, n_iters, use_kernel, real_lanes)
+    lam_itl, ok_itl = _bisect(itl_case, n_iters, use_kernel, real_lanes)
     lam_ttft = torch.where(params.target_ttft > 0, lam_ttft, lam_max)
     ok_ttft = torch.where(params.target_ttft > 0, ok_ttft, True)
     lam_itl = torch.where(params.target_itl > 0, lam_itl, lam_max)

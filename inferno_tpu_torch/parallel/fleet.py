@@ -549,7 +549,7 @@ def _solve_slot(slot: BucketSlot, device: torch.device, n_iters: int, use_kernel
     )
     if slot.cached is None:
         sizer = fleet_size if agg else tandem_fleet_size
-        return sizer(params, slot.k, n_iters, use_kernel)
+        return sizer(params, slot.k, n_iters, use_kernel, real_lanes=len(slot.idx))
     lam, rate, feasible = (
         torch.as_tensor(np.ascontiguousarray(c), device=device) for c in slot.cached
     )

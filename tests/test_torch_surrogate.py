@@ -13,6 +13,8 @@ predictions).
 
 from __future__ import annotations
 
+import logging
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -160,6 +162,10 @@ def test_refit_device_error_propagates(monkeypatch, caplog):
     ratio-scaled (a Reconciler resolves the corrector's device when it is
     built, so a missing card stops the controller there instead)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    # the reference's get_logger() ("inferno", reached by any earlier
+    # backend-auto Reconciler in this process) stops propagation below it,
+    # so the corrector's warning would never reach caplog's root handler
+    monkeypatch.setattr(logging.getLogger("inferno"), "propagate", True)
     port = p_corr.ProfileCorrector(device=None)
     _feed(port, p_corr.Observation, _window(np.random.default_rng(1)))
     dec, _, state = port.corrected_parms(
