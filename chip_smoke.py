@@ -173,6 +173,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    relative; the solve's host ms (plans to results) and a cold full
    calculate_fleet + solve_unlimited pass of each, with the card's name
    and power limit and os.cpu_count().
+21. the sharded programs: (a) phase 4's 10k edge fleet on backend cuda
+   with `fleet_mesh(devices=["cuda:0"] * 4)` (the lanes split, the four
+   shards run in turn on the one card) and with `fleet_mesh()` (every
+   visible card), on the full path (INCREMENTAL_CYCLE=0) and the
+   incremental path (cold, then 1% of arrival rates moved): 0 lanes
+   differing in any bit from the unsharded solve and identical
+   decisions, else it raises; the launches of both kernels per shard
+   (the unsharded pass's, times the shards); warm full passes, sharded
+   and unsharded; (b) six rows of the diurnal week through
+   calculate_fleet_batch with the 4-shard mesh equal to the unsharded
+   prep; (c) graft_entry.entry() on the card (4 + 2 launches) against the
+   plain version under the ±1 rule; (d) graft_entry.dryrun_multichip(
+   device_count) on NCCL ranks, whose (1, 1) training steps equal the
+   one-device steps bit for bit on one card.
 
 The card's name and power limit (nvidia-smi) are printed first and again
 before the kernels line.
@@ -2662,6 +2676,222 @@ def _phase20(smi):
           f"os.cpu_count() {os.cpu_count()}")
 
 
+# phase 21: the lane mesh on the card (one card: the shards run in turn
+# on it), the port's graft entry, and the dry run on NCCL
+P21_SHARDS = 4
+P21_WEEK_ROWS = 6
+P21_MOVE = 0.01
+
+
+def _result_bit_diffs(a, b):
+    """Lanes of two host FleetResults that differ in any bit of any field."""
+    import numpy as np
+
+    bad = np.zeros(len(a[0]), bool)
+    for fa, fb in zip(a, b):
+        fa, fb = np.ascontiguousarray(fa), np.ascontiguousarray(fb)
+        bad |= (fa.view(np.uint8).reshape(len(fa), -1)
+                != fb.view(np.uint8).reshape(len(fb), -1)).any(axis=1)
+    return int(bad.sum())
+
+
+def _memo_results():
+    """The host results (agg, tandem) of the last full pass (solve memo)."""
+    from inferno_tpu_torch.parallel import fleet
+
+    return fleet._solve_memo["last"]["results"]
+
+
+def _state_tables():
+    """Copies of the incremental state's result tables, per lane kind."""
+    from inferno_tpu_torch.parallel import incremental
+
+    return {k: [getattr(t.res, f).copy() for f in incremental._RESULT_FIELDS]
+            for k, t in incremental._state.kinds.items()}
+
+
+def _phase21_full(spec, mesh, label):
+    """A cold full pass (INCREMENTAL_CYCLE=0) on a fresh System: launches,
+    host results, decisions, and three warm passes (loads perturbed)."""
+    from inferno_tpu_torch.config.types import SystemSpec
+    from inferno_tpu_torch.core.system import System
+    from inferno_tpu_torch.ops import cuda_queueing
+    from inferno_tpu_torch.parallel import calculate_fleet, reset_fleet_state
+    from inferno_tpu_torch.solver import solve_unlimited
+    from inferno_tpu_torch.testing.fleet import perturb_loads
+
+    reset_fleet_state()
+    system = System(SystemSpec.from_dict(spec.to_dict()))
+    os.environ["INCREMENTAL_CYCLE"] = "0"
+    try:
+        cuda_queueing.LAUNCHES = 0
+        cuda_queueing.BISECT_LAUNCHES = 0
+        _, cold = _timed(lambda: (calculate_fleet(system, backend="cuda", mesh=mesh),
+                                  solve_unlimited(system)))
+        counts = (cuda_queueing.LAUNCHES, cuda_queueing.BISECT_LAUNCHES)
+        results = _memo_results()
+        decisions = _decisions(system)
+        warm = []
+        for _ in range(3):
+            perturb_loads(system)
+            warm.append(_timed(lambda: (calculate_fleet(system, backend="cuda", mesh=mesh),
+                                        solve_unlimited(system)))[1])
+    finally:
+        del os.environ["INCREMENTAL_CYCLE"]
+    print(f"  {label}: full pass cold {cold:.1f} ms, warm {', '.join(f'{t:.1f}' for t in warm)} "
+          f"ms; launches stats_kernel {counts[0]}, bisect_kernel {counts[1]}")
+    return counts, results, decisions, warm
+
+
+def _phase21_incremental(spec, mesh, label):
+    """Cold, then 1% λ moved (seed 21): each cycle's launches, dispatched
+    buckets, state tables and decisions."""
+    import numpy as np
+
+    from inferno_tpu_torch.config.types import SystemSpec
+    from inferno_tpu_torch.core.system import System
+    from inferno_tpu_torch.parallel import reset_fleet_state
+
+    reset_fleet_state()
+    system = System(SystemSpec.from_dict(spec.to_dict()))
+    rng = np.random.default_rng(21)
+    out = []
+    for step in ("cold", "1% λ"):
+        if step != "cold":
+            _move_rates(system, rng, P21_MOVE)
+        spy, counts, ms = _cycle(system, "cuda", mesh=mesh)
+        out.append((counts, spy.expected(), _state_tables(), _decisions(system), ms))
+        print(f"  {label}, incremental {step}: {ms:.1f} ms; launches stats_kernel "
+              f"{counts[0]}, bisect_kernel {counts[1]} ({len(spy.slots)} buckets)")
+    return out
+
+
+def _phase21(smi):
+    """21. the lane mesh on the card, the graft entry, the NCCL dry run."""
+    import numpy as np
+    import torch
+
+    from inferno_tpu_torch import graft_entry
+    from inferno_tpu_torch.core.system import System
+    from inferno_tpu_torch.ops import cuda_queueing
+    from inferno_tpu_torch.ops import queueing as q
+    from inferno_tpu_torch.parallel import calculate_fleet_batch, fleet_mesh, reset_fleet_state
+    from inferno_tpu_torch.planner.scenarios import base_rates_from_system, diurnal
+    from inferno_tpu_torch.testing.fleet import fleet_system_spec
+
+    count = torch.cuda.device_count()
+    print(f"21. the lane mesh on the card ({count} visible), {smi}")
+    spec = fleet_system_spec(10000, **FLEET_KW)
+    meshes = [(None, "unsharded"),
+              (fleet_mesh(devices=["cuda:0"] * P21_SHARDS), f"{P21_SHARDS} shards on cuda:0"),
+              (fleet_mesh(), f"fleet_mesh() ({count} device)")]
+
+    # (a) the full path
+    full = {label: _phase21_full(spec, mesh, label) for mesh, label in meshes}
+    base_counts, base_res, base_dec, base_warm = full["unsharded"]
+    for mesh, label in meshes[1:]:
+        counts, res, dec, warm = full[label]
+        size = 1 if mesh is None or mesh.size <= 1 else mesh.size
+        diff = sum(_result_bit_diffs(a, b) for a, b in zip(res, base_res) if a is not None)
+        lanes = sum(len(a[0]) for a in res if a is not None)
+        same = dec == base_dec
+        print(f"  {label}: {diff} of {lanes} lanes differ in a bit from the unsharded pass; "
+              f"decisions {'identical' if same else 'DIFFER'} ({sum(d is not None for d in dec.values())} "
+              f"servers allocated); launches per shard {counts[0] / size:g} + "
+              f"{counts[1] / size:g}; warm median sharded "
+              f"{statistics.median(warm):.1f} ms, unsharded {statistics.median(base_warm):.1f} ms")
+        if diff or not same:
+            raise AssertionError(f"21(a) {label}: the sharded full pass differs from the unsharded")
+        if counts != (base_counts[0] * size, base_counts[1] * size):
+            raise AssertionError(f"21(a) {label}: launches {counts}, expected {size} x {base_counts}")
+
+    # (a) the incremental path: cold, then one 1% λ cycle
+    incr = {label: _phase21_incremental(spec, mesh, label) for mesh, label in meshes}
+    for mesh, label in meshes[1:]:
+        size = 1 if mesh is None or mesh.size <= 1 else mesh.size
+        for step, got, want in zip(("cold", "1% λ"), incr[label], incr["unsharded"]):
+            counts, expected, tables, dec, _ = got
+            diff = sum(_result_bit_diffs(tables[k], want[2][k]) for k in tables)
+            lanes = sum(len(t[0]) for t in tables.values())
+            print(f"  {label}, incremental {step}: {diff} of {lanes} lanes differ in a bit; "
+                  f"decisions {'identical' if dec == want[3] else 'DIFFER'}; launches per "
+                  f"shard {counts[0] / size:g} + {counts[1] / size:g} (the buckets make "
+                  f"{expected[0]} + {expected[1]})")
+            if diff or dec != want[3]:
+                raise AssertionError(f"21(a) {label} {step}: sharded cycle differs")
+            if counts != (expected[0] * size, expected[1] * size):
+                raise AssertionError(f"21(a) {label} {step}: launches {counts}, expected "
+                                     f"{size} x {expected}")
+    mesh4 = meshes[1][0]
+
+    # (b) six timesteps of the week through the prep, sharded and not
+    system = System(spec)
+    trace = diurnal(base_rates_from_system(system), 168, 3600.0, seed=0)
+    rows = trace.rates[:: 168 // P21_WEEK_ROWS][:P21_WEEK_ROWS]
+    got = {}
+    for mesh, label in meshes[:2]:
+        reset_fleet_state()
+        got[label], ms = _timed(lambda: calculate_fleet_batch(System(spec), rows,
+                                                              backend="cuda", mesh=mesh))
+        print(f"  21(b) {label}: {P21_WEEK_ROWS} week rows in {ms:.1f} ms")
+    for field in ("choice", "replicas", "chips", "cost", "value"):
+        a, b = getattr(got[meshes[1][1]], field), getattr(got["unsharded"], field)
+        if not np.array_equal(a, b):
+            raise AssertionError(f"21(b): the sharded prep's {field} differs")
+    print(f"  21(b) the week prep over {P21_SHARDS} shards equals the unsharded one on "
+          f"{P21_WEEK_ROWS} rows (choice, replicas, chips, cost, value)")
+    reset_fleet_state()
+
+    # (c) the graft entry on the card against its plain version
+    fn, args = graft_entry.entry()
+    cuda_queueing.LAUNCHES = 0
+    cuda_queueing.BISECT_LAUNCHES = 0
+    res, ms = _timed(lambda: fn(*args))
+    counts = (cuda_queueing.LAUNCHES, cuda_queueing.BISECT_LAUNCHES)
+    plain = q.fleet_size(args[0], graft_entry.K_MAX, use_kernel=False)
+    boundary = _entry_match(res, plain)
+    print(f"  21(c) graft_entry.entry(): 64 lanes at K={graft_entry.K_MAX} in {ms:.1f} ms, "
+          f"launches {counts[0]} + {counts[1]}; equal to the plain version ({boundary} ±1 "
+          f"boundary lanes)")
+    if counts != (4, 2):
+        raise AssertionError(f"21(c): entry launched {counts}, expected (4, 2)")
+
+    # (d) the dry run on NCCL, one rank a card
+    report, ms = _timed(lambda: graft_entry.dryrun_multichip(count, timeout=300))
+    print(f"  21(d) dryrun_multichip({count}) on {report['backend']}: mesh (dp, tp) = "
+          f"({report['dp']}, {report['tp']}), losses {report['losses'][0]:.6f} -> "
+          f"{report['losses'][-1]:.6f} (one device: {report['single_losses'][0]:.6f} -> "
+          f"{report['single_losses'][-1]:.6f}), fleet and tandem lanes "
+          f"{report['fleet_lanes']} / {report['tandem_lanes']}; {ms:.1f} ms")
+    if report["backend"] != "nccl" or (count == 1 and report["losses"] != report["single_losses"]):
+        raise AssertionError("21(d): the (1, 1) step differs from the one-device step")
+
+
+def _entry_match(got, want):
+    """The port's rule for sizing results (kernel against plain version):
+    feasibility exact, replicas exact except ±1 where rate_star agrees
+    within 1e-4, rate_star and lambda_star within 1e-4, cost 1e-5 and
+    itl/ttft/rho within 5e-3 off the boundary lanes; returns the boundary
+    lanes."""
+    import numpy as np
+
+    g = {k: v.cpu().numpy() for k, v in got._asdict().items()}
+    w = {k: v.cpu().numpy() for k, v in want._asdict().items()}
+    if not np.array_equal(g["feasible"], w["feasible"]):
+        raise AssertionError("21(c): feasibility differs")
+    for name in ("rate_star", "lambda_star"):
+        np.testing.assert_allclose(g[name], w[name], rtol=1e-4, err_msg=name)
+    diff = g["num_replicas"].astype(np.int64) - w["num_replicas"].astype(np.int64)
+    boundary = (np.abs(diff) == 1) & np.isclose(g["rate_star"], w["rate_star"], rtol=1e-4, atol=0)
+    if not np.all((diff == 0) | boundary):
+        raise AssertionError("21(c): replicas differ off the ±1 boundary")
+    keep = ~boundary
+    np.testing.assert_allclose(g["cost"][keep], w["cost"][keep], rtol=1e-5)
+    for name in ("itl", "ttft", "rho"):
+        np.testing.assert_allclose(g[name][keep], w[name][keep], rtol=TOL, err_msg=name)
+    return int(boundary.sum())
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0, help="seed of phase 12's loads")
@@ -2918,6 +3148,10 @@ def main() -> int:
     _stamp("phase 19 done")
     _phase20(smi)
     _stamp("phase 20 done")
+
+    # 21. the lane mesh, the graft entry, the NCCL dry run
+    _phase21(smi)
+    _stamp("phase 21 done")
 
     replaces = "inferno_tpu/ops/pallas_queueing.py:84"
     print(smi)  # again near the end: a reader of the output's tail sees the card

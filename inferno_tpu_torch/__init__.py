@@ -19,9 +19,12 @@ loop (`python -m inferno_tpu_torch.controller.main`) with its flight
 recorder; and the offline planner (`python -m inferno_tpu_torch.planner`:
 the batched time-axis solve `parallel.calculate_fleet_batch`, scenario,
 Monte Carlo and spot-storm replays, and `--trace` replays of recorded
-cycles).
+cycles); and the sharded programs: the fleet solve split over a device
+mesh (`parallel.fleet_mesh`, `SIZING_SHARDS`), the surrogate's (dp, tp)
+training on `torch.distributed` ranks, and the graft entry
+(`graft_entry.entry`, `graft_entry.dryrun_multichip`).
 """
 
-__version__ = "0.1.0"
+from inferno_tpu_torch.version import __version__
 
 __all__ = ["__version__"]

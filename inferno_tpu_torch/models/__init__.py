@@ -13,6 +13,7 @@ from inferno_tpu_torch.models.surrogate import (
     SurrogateConfig,
     featurize,
     surrogate_forward,
+    surrogate_param_specs,
     surrogate_params_from_jax,
 )
 
@@ -23,5 +24,6 @@ __all__ = [
     "SurrogateConfig",
     "featurize",
     "surrogate_forward",
+    "surrogate_param_specs",
     "surrogate_params_from_jax",
 ]

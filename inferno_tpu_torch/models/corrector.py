@@ -60,8 +60,10 @@ bench's closed-loop calibration rely on):
 
 Port copy of `inferno_tpu/models/corrector.py`, verbatim apart from its
 imports and the surrogate refit. The refit trains the torch surrogate
-(`models/surrogate.py`, `parallel/train.py`) on `device` (None = the
-CUDA card), from the reference's own initial weights (see
+(`models/surrogate.py`, `parallel/train.py`) on one device, `device`
+(None = the CUDA card; the reference refits on a dp mesh of every local
+device, which needs a process group the one-process controller does not
+have), from the reference's own initial weights (see
 `models/surrogate.py`). As in the reference, any failure of the refit
 falls back to ratio scaling for that variant only; the port also logs it
 and counts it in `refit_errors`.

@@ -38,6 +38,14 @@ keep their names and call signatures. What differs:
 
 Everything runs on the device of the tensors it is given; `init_stack`
 places them on the card unless the caller asks for the CPU.
+
+Tensor parallelism (the counterpart of the reference dry run's tp decode,
+`__graft_entry__.py:281-332`): `shard_stack` keeps one rank's slice of the
+stacked parameters and `shard_caches` of the KV caches, and
+`make_decode_fn(..., tp_group=)` runs the decode on those slices with an
+all-reduce after `wo` and after `w_down` and the logits all-gathered over
+the vocabulary before sampling. Without a group every function is the
+one-device one.
 """
 
 from __future__ import annotations
@@ -283,13 +291,15 @@ def _cache_write(cache: torch.Tensor, new: torch.Tensor, idx: torch.Tensor) -> N
     cache.index_copy_(2, idx, new.contiguous())
 
 
-def _layer(x, layer_p, kv_cache, positions, mask, dims: LlamaDims, write_idx=None):
+def _layer(x, layer_p, kv_cache, positions, mask, dims: LlamaDims, write_idx=None,
+           reduce=None):
     """One decoder layer over (B, T, H) with KV cache write at `positions`.
 
     kv_cache: (k, v) pair of (B, n_kv_heads, S_max, hd) buffers for this
     layer, written in place at the slots `write_idx` (`write_index` of
     positions[0, 0]), or None (prefill without cache retention).
-    Returns (out, cache)."""
+    `reduce` (tensor parallel: `dims` are one rank's) sums the row-parallel
+    `wo` and `w_down` products over the ranks. Returns (out, cache)."""
     h = _rmsnorm(x, layer_p["norm_attn"])
     b, t = x.shape[0], x.shape[1]
     q = _mm(h, layer_p["wq"]).reshape(b, t, dims.n_heads, dims.head_dim)
@@ -308,10 +318,12 @@ def _layer(x, layer_p, kv_cache, positions, mask, dims: LlamaDims, write_idx=Non
         k_all, v_all = k, v
 
     attn = _gqa_attend(q, k_all, v_all, mask, dims)
-    x = x + _mm(attn, layer_p["wo"])
+    out = _mm(attn, layer_p["wo"])
+    x = x + (out if reduce is None else reduce(out))
     h = _rmsnorm(x, layer_p["norm_mlp"])
     gated = F.silu(_mm(h, layer_p["w_gate"]).float()).to(h.dtype)
-    x = x + _mm(gated * _mm(h, layer_p["w_up"]), layer_p["w_down"])
+    out = _mm(gated * _mm(h, layer_p["w_up"]), layer_p["w_down"])
+    x = x + (out if reduce is None else reduce(out))
     return x, kv_cache
 
 
@@ -494,7 +506,63 @@ def make_prefill_repeat_fn(dims: LlamaDims, reps: int):
     return repeat_fn(step, reps)
 
 
-def make_decode_fn(dims: LlamaDims, n_layers: int, n_steps: int):
+# the reference dry run's layer_specs (`__graft_entry__.py:222-231`): the
+# column-parallel projections split their output columns, the row-parallel
+# ones their input rows; the LM head splits the vocabulary
+_TP_SPLIT = {"wq": 2, "wk": 2, "wv": 2, "w_gate": 2, "w_up": 2, "wo": 1, "w_down": 1}
+
+
+def shard_stack(params: dict, rank: int, tp: int) -> dict:
+    """Rank `rank`'s slice (of `tp`) of `init_stack`'s parameters: wq, wk,
+    wv, w_gate, w_up by columns (whole heads, and each rank's query heads
+    use its own kv heads), wo and w_down by rows, lm_head by columns (the
+    vocabulary); the norms whole. Contiguous copies."""
+    def part(w, dim):
+        if w.shape[dim] % tp:
+            raise ValueError(f"dimension {dim} of {tuple(w.shape)} does not split over tp={tp}")
+        return w.chunk(tp, dim=dim)[rank].contiguous()
+
+    layers = {k: (part(w, _TP_SPLIT[k]) if k in _TP_SPLIT else w)
+              for k, w in params["layers"].items()}
+    return {"layers": layers, "norm_out": params["norm_out"],
+            "lm_head": part(params["lm_head"], 1)}
+
+
+def shard_caches(caches, rank: int, tp: int) -> tuple:
+    """Rank `rank`'s kv heads of each (B, n_kv_heads, S_max, hd) cache."""
+    return tuple(c.chunk(tp, dim=1)[rank].contiguous() for c in caches)
+
+
+def tp_dims(dims: LlamaDims, tp: int) -> LlamaDims:
+    """One rank's dimensions under tensor parallelism over `tp` ranks."""
+    for name in ("n_heads", "n_kv_heads", "ffn", "vocab"):
+        if getattr(dims, name) % tp:
+            raise ValueError(f"{name}={getattr(dims, name)} does not split over tp={tp}")
+    return dataclasses.replace(
+        dims, n_heads=dims.n_heads // tp, n_kv_heads=dims.n_kv_heads // tp,
+        ffn=dims.ffn // tp, vocab=dims.vocab // tp,
+    )
+
+
+def _tp_collectives(group):
+    """(reduce, gather) over a tp process group: a sum of partial products
+    in place, and the vocabulary slices of the logits concatenated in rank
+    order."""
+    import torch.distributed as dist
+
+    def reduce(t):
+        dist.all_reduce(t, group=group)
+        return t
+
+    def gather(t):
+        parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, t.contiguous(), group=group)
+        return torch.cat(parts, dim=-1)
+
+    return reduce, gather
+
+
+def make_decode_fn(dims: LlamaDims, n_layers: int, n_steps: int, tp_group=None):
     """Multi-step greedy-shape decode: `n_steps` single-token steps over the
     layer stack.
 
@@ -503,7 +571,20 @@ def make_decode_fn(dims: LlamaDims, n_layers: int, n_steps: int):
     caches); the caches are updated in place. Timing `.step(params, x,
     caches, pos, acc)` (one step on state tensors, in place) replayed from
     a CUDA graph gives the inter-token latency without per-step dispatch.
+
+    With a `tp_group` (a `torch.distributed` group of tp ranks) every rank
+    runs on its `shard_stack` params and `shard_caches` caches: the layers
+    at `tp_dims`, an all-reduce after `wo` and `w_down`, the logits
+    all-gathered before sampling, so every rank ends with the full x and
+    the full logits' sum.
     """
+    reduce = gather = None
+    layer_dims = dims
+    if tp_group is not None:
+        import torch.distributed as dist
+
+        reduce, gather = _tp_collectives(tp_group)
+        layer_dims = tp_dims(dims, dist.get_world_size(tp_group))
 
     def step(params, x, caches, pos, acc):
         b = x.shape[0]
@@ -516,10 +597,12 @@ def make_decode_fn(dims: LlamaDims, n_layers: int, n_steps: int):
         for li in range(n_layers):
             h, _ = _layer(
                 h, layer_params(params, li), (caches[2 * li], caches[2 * li + 1]),
-                positions, mask, dims, write_idx,
+                positions, mask, layer_dims, write_idx, reduce=reduce,
             )
         h = _rmsnorm(h, params["norm_out"])
         logits = _mm(h[:, -1, :], params["lm_head"])
+        if gather is not None:
+            logits = gather(logits)
         x.copy_(_sample_next(logits, dims.hidden, x.dtype))
         acc.add_(torch.sum(logits.float()))
         pos.add_(1)

@@ -15,8 +15,17 @@ biases and the two layer norms), so `surrogate_params_from_jax` carries a
 reference parameter pytree across as a `state_dict`. The forward pass is
 the reference's expression for expression: `jax.nn.gelu` is the tanh
 approximation, the layer norm takes the population variance with eps 1e-6
-inside the rsqrt. `featurize` stays numpy. The reference's tensor-parallel
-partition specs go with the multi-GPU training (a later slice).
+inside the rsqrt. `featurize` stays numpy.
+
+Tensor parallelism: `surrogate_param_specs` names, for each parameter,
+the dimension it splits over the "tp" axis (the reference's Megatron-style
+column/row split), and a model whose `tp_group` is set holds its rank's
+slices (`parallel.train.init_train_state`) and runs Megatron's conjugate
+pair around each parallel block: `tp_copy` (identity forward, all-reduce
+backward) at the input of the column-parallel `qkv` and `mlp_in`
+products, `tp_reduce` (all-reduce forward, identity backward) after the
+row-parallel `attn_out` and `mlp_out` products, before the replicated
+`mlp_out_b` is added. With no group the forward is the one-device one.
 
 `Surrogate()` (the default config, seed 0) starts from the reference's
 `init_surrogate(jax.random.key(0))` weights, stored in `surrogate_init.npz`
@@ -77,6 +86,67 @@ def featurize(
     return np.log1p(np.abs(x)) * np.sign(x)
 
 
+def surrogate_param_specs(cfg: SurrogateConfig = SurrogateConfig()) -> dict[str, int | None]:
+    """The tensor-parallel split of each parameter (`state_dict` names):
+    the dimension it splits over "tp", or None where it is replicated.
+    Attention heads and the MLP hidden dimension are split: `qkv_w` by
+    heads (column-parallel), `attn_out_w` by its head rows (row-parallel),
+    `mlp_in_w` and `mlp_in_b` by columns, `mlp_out_w` by rows; everything
+    else is replicated (reference: `surrogate_param_specs`)."""
+    specs: dict[str, int | None] = {
+        "embed": None, "pos": None, "head_w": None, "head_b": None,
+    }
+    split = {"qkv_w": 2, "attn_out_w": 0, "mlp_in_w": 1, "mlp_in_b": 0, "mlp_out_w": 0}
+    for i in range(cfg.n_layers):
+        for name in _LAYER_KEYS:
+            specs[f"layers.{i}.{name}"] = split.get(name)
+    return specs
+
+
+class _CopyToTP(torch.autograd.Function):
+    """Megatron's f: identity forward, all-reduce of the gradient over the
+    tp group backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        import torch.distributed as dist
+
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+class _ReduceFromTP(torch.autograd.Function):
+    """Megatron's g: all-reduce over the tp group forward, identity
+    backward (`torch.distributed.nn.functional.all_reduce` would reduce the
+    gradient again, scaling it by tp)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+
+        x = x.contiguous().clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def tp_copy(x: torch.Tensor, group) -> torch.Tensor:
+    return x if group is None else _CopyToTP.apply(x, group)
+
+
+def tp_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    return x if group is None else _ReduceFromTP.apply(x, group)
+
+
 class _Layer(nn.Module):
     def __init__(self, cfg: SurrogateConfig, gen: torch.Generator):
         super().__init__()
@@ -119,23 +189,25 @@ class Surrogate(nn.Module):
         )
         self.head_b = nn.Parameter(torch.zeros(N_OUTPUTS))
         self.layers = nn.ModuleList(_Layer(cfg, gen) for _ in range(cfg.n_layers))
+        self.tp_group = None  # set with this rank's slices (parallel.train)
         if cfg == SurrogateConfig() and seed == 0:
             with np.load(REFERENCE_INIT) as f:
                 self.load_state_dict({k: torch.from_numpy(f[k]) for k in f.files})
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        tp = self.tp_group
         h = self.embed[None, :, :] * x[:, :, None] + self.pos[None, :, :]  # [B, T, D]
         for layer in self.layers:
-            y = _layer_norm(h, layer.ln1_scale, layer.ln1_bias)
+            y = tp_copy(_layer_norm(h, layer.ln1_scale, layer.ln1_bias), tp)
             qkv = torch.einsum("btd,dchk->cbthk", y, layer.qkv_w)  # [3,B,T,H,K]
             q, k_, v = qkv[0], qkv[1], qkv[2]
             logits = torch.einsum("bthk,bshk->bhts", q, k_) / math.sqrt(q.shape[-1])
             attn = torch.softmax(logits, dim=-1)
             ctx = torch.einsum("bhts,bshk->bthk", attn, v)
-            h = h + torch.einsum("bthk,hkd->btd", ctx, layer.attn_out_w)
-            y = _layer_norm(h, layer.ln2_scale, layer.ln2_bias)
+            h = h + tp_reduce(torch.einsum("bthk,hkd->btd", ctx, layer.attn_out_w), tp)
+            y = tp_copy(_layer_norm(h, layer.ln2_scale, layer.ln2_bias), tp)
             ff = nn.functional.gelu(y @ layer.mlp_in_w + layer.mlp_in_b, approximate="tanh")
-            h = h + ff @ layer.mlp_out_w + layer.mlp_out_b
+            h = h + tp_reduce(ff @ layer.mlp_out_w, tp) + layer.mlp_out_b
         pooled = h.mean(dim=1)  # [B, D]
         return pooled @ self.head_w + self.head_b
 

@@ -36,12 +36,20 @@ one full sizing of every bucket through `solve_slots` (the kernels on
 backend "cuda"), and its per-row replica fold, transition penalties and
 segment argmin stay host numpy, as in the reference.
 
-Left out against the reference, for a later slice of the port:
-sharding lanes over several devices (`shard_map`).
+Sharding (the reference's `shard_map` over a `jax.sharding.Mesh`): with a
+`parallel.mesh.FleetMesh` of more than one device (`mesh=`, `use_mesh=`,
+or the `SIZING_SHARDS` environment variable), every bucket is padded to a
+multiple of the mesh size and split into contiguous shards, one per
+device; `solve_slots` queues every shard's copies and launches on its own
+device before the first copy back, then gathers the results in lane
+order. Lanes are independent, so the sharded solve gives the same bits
+as the unsharded one. A one-device mesh, or none, runs the unsharded
+code.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import NamedTuple
@@ -54,6 +62,7 @@ from inferno_tpu_torch.config.defaults import (
     MAX_QUEUE_TO_BATCH_RATIO,
     env_flag,
     env_int,
+    env_str,
 )
 from inferno_tpu_torch.core.allocation import (
     Allocation,
@@ -82,7 +91,12 @@ from inferno_tpu_torch.ops.queueing import (
     tandem_refold,
     unpack_result,
 )
-from inferno_tpu_torch.parallel.mesh import fleet_device
+from inferno_tpu_torch.parallel.mesh import (
+    FleetMesh,
+    fleet_device,
+    fleet_mesh,
+    shard_fleet_params,
+)
 
 _K_PAD = 128  # head (max-batch) grid padded to this floor
 
@@ -449,19 +463,20 @@ def pad_params_rows(params, total: int):
     return type(params)(*(_pad_rows(np.asarray(a), total) for a in params))
 
 
-def _pad_lanes(n: int) -> int:
+def _pad_lanes(n: int, chunk: int = 1) -> int:
     """Pad a bucket's lane count to the next power of two (>= 8) up to
-    2048, then to a multiple of 512 (the reference's rule, less its
-    mesh-chunk rounding until lanes are split over GPUs). Stable bucket
-    shapes keep a later captured launch sequence (a CUDA graph) valid
-    while a fleet grows or shrinks by a few variants; the dummy lanes cost
-    under 1% above 2k lanes."""
+    2048, then to a multiple of 512, then to a multiple of the mesh
+    `chunk` (its size; 1 without a mesh), so that every shard gets the
+    same width: the reference's rule. Stable bucket shapes keep a later
+    captured launch sequence (a CUDA graph) valid while a fleet grows or
+    shrinks by a few variants; the dummy lanes cost under 1% above 2k
+    lanes."""
     padded = 8
     while padded < n and padded < 2048:
         padded *= 2
     if padded < n:
         padded = -(-n // 512) * 512
-    return padded
+    return padded + ((-padded) % chunk)
 
 
 def _empty_result(n: int) -> FleetResult:
@@ -497,6 +512,7 @@ class BucketSlot(NamedTuple):
 def add_bucketed(
     slots: list, kind: str, params_np, bucket_batches: np.ndarray,
     idx_map: np.ndarray | None = None, cached: tuple | None = None,
+    chunk: int = 1,
 ) -> None:
     """Append the buckets of one lane set to `slots` — the one bucketing
     rule of both paths. Lanes are grouped into geometric max-batch
@@ -508,7 +524,8 @@ def add_bucketed(
     lane's result is independent of its place and of its neighbours.
     `idx_map` maps the lane set's positions to the indices a slot
     reports (identity when None); `cached` are the refold columns of the
-    lane set, gathered per bucket. Padding rows repeat row 0."""
+    lane set, gathered per bucket. Padding rows repeat row 0, up to a
+    multiple of the mesh `chunk` (`_pad_lanes`)."""
     cls = type(params_np)
     bucket_batches = np.asarray(bucket_batches)
     buckets: dict[int, list[int]] = {}
@@ -517,7 +534,7 @@ def add_bucketed(
     for k_bucket, idx_list in sorted(buckets.items()):
         idx = np.asarray(idx_list)
         idx = idx[np.argsort(bucket_batches[idx], kind="stable")]
-        width = _pad_lanes(len(idx))
+        width = _pad_lanes(len(idx), chunk)
         sub = pad_params_rows(cls(*(np.asarray(a)[idx] for a in params_np)), width)
         aux = None
         if cached is not None:
@@ -527,29 +544,39 @@ def add_bucketed(
 
 
 def bucket_slots(
-    plan: FleetPlan | None, tandem: TandemPlan | None
+    plan: FleetPlan | None, tandem: TandemPlan | None, chunk: int = 1
 ) -> list[BucketSlot]:
-    """The full path's buckets, in launch order (see `add_bucketed`)."""
+    """The full path's buckets, in launch order (see `add_bucketed`),
+    padded to a multiple of the mesh `chunk`."""
     slots: list[BucketSlot] = []
     if plan is not None and plan.num_lanes:
-        add_bucketed(slots, "agg", plan.params, np.asarray(plan.params.max_batch))
+        add_bucketed(
+            slots, "agg", plan.params, np.asarray(plan.params.max_batch), chunk=chunk
+        )
     if tandem is not None and tandem.num_lanes:
         tp = tandem.params
         add_bucketed(
             slots, "tan", tp,
             np.maximum(np.asarray(tp.prefill_batch), np.asarray(tp.decode_batch)),
+            chunk=chunk,
         )
     return slots
 
 
-def _solve_slot(slot: BucketSlot, device: torch.device, n_iters: int, use_kernel: bool):
+def _solve_slot(
+    slot: BucketSlot, device: torch.device, n_iters: int, use_kernel: bool,
+    real_lanes: int | None = None,
+):
+    """One bucket's program on `device`. `real_lanes` (default: the
+    slot's lanes) tells the bisection kernel where the pad rows start."""
     agg = slot.kind == "agg"
     params = (fleet_params_from_numpy if agg else tandem_params_from_numpy)(
         slot.sub, device
     )
     if slot.cached is None:
         sizer = fleet_size if agg else tandem_fleet_size
-        return sizer(params, slot.k, n_iters, use_kernel, real_lanes=len(slot.idx))
+        real = len(slot.idx) if real_lanes is None else real_lanes
+        return sizer(params, slot.k, n_iters, use_kernel, real_lanes=real)
     lam, rate, feasible = (
         torch.as_tensor(np.ascontiguousarray(c), device=device) for c in slot.cached
     )
@@ -557,12 +584,83 @@ def _solve_slot(slot: BucketSlot, device: torch.device, n_iters: int, use_kernel
     return refold(params, slot.k, lam, rate, feasible.to(torch.bool), use_kernel)
 
 
+def _mesh_key(mesh: FleetMesh | None) -> FleetMesh | None:
+    """The mesh a solve shards over: None for no mesh or a one-device mesh
+    (both run the unsharded code)."""
+    return mesh if mesh is not None and mesh.size > 1 else None
+
+
+def _mesh_chunk(mesh: FleetMesh | None) -> int:
+    key = _mesh_key(mesh)
+    return 1 if key is None else key.size
+
+
+def _shard_slots(slot: BucketSlot, mesh: FleetMesh) -> list[tuple[BucketSlot, int]]:
+    """A bucket's contiguous shards, one per mesh device, each with its
+    real lane count. A shard past the bucket's real lanes holds only pad
+    rows (copies of the bucket's row 0, a valid lane): it runs as one
+    real lane, so every shard launches the bucket's program. Its results,
+    like every pad row's, are never read back."""
+    subs = shard_fleet_params(slot.sub, mesh)
+    cached = (
+        [None] * mesh.size if slot.cached is None
+        else shard_fleet_params(slot.cached, mesh)
+    )
+    width = slot.width // mesh.size
+    out = []
+    for j, (sub, aux) in enumerate(zip(subs, cached)):
+        real = min(width, max(1, len(slot.idx) - j * width))
+        out.append((slot._replace(sub=sub, width=width, cached=aux), real))
+    return out
+
+
+def _device_context(device: torch.device):
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
+def _solve_sharded(
+    slots: list[BucketSlot], mesh: FleetMesh, n_iters: int, use_kernel: bool
+) -> np.ndarray:
+    """Every bucket split over the mesh: each device's shards are queued
+    (copies and launches, under that device's current stream) into one
+    packed [8, total / size] tensor of its own before the first copy back,
+    so distinct cards run at once; a repeated device runs its shards in
+    turn. The host then gathers each bucket's shards in lane order."""
+    size = mesh.size
+    total = sum(s.width for s in slots)
+    sharded = [_shard_slots(slot, mesh) for slot in slots]
+    packed = []
+    for j, device in enumerate(mesh.devices):
+        with _device_context(device):
+            out = torch.empty((8, total // size), dtype=torch.float32, device=device)
+            offset = 0
+            for shards in sharded:
+                shard, real = shards[j]
+                res = _solve_slot(shard, device, n_iters, use_kernel, real_lanes=real)
+                pack_result(res, out=out[:, offset : offset + shard.width])
+                offset += shard.width
+        packed.append(out)
+    host = [p.cpu().numpy() for p in packed]
+    packed_all = np.empty((8, total), np.float32)
+    offset = shard_offset = 0
+    for slot in slots:
+        width = slot.width // size
+        for j in range(size):
+            packed_all[:, offset + j * width : offset + (j + 1) * width] = (
+                host[j][:, shard_offset : shard_offset + width]
+            )
+        offset += slot.width
+        shard_offset += width
+    return packed_all
+
+
 # launch signatures dispatched so far in this process (see solve_slots)
 _compiled_sigs: set = set()
 
 
 def solve_slots(
-    slots: list[BucketSlot], device: torch.device, n_iters: int, use_kernel: bool
+    slots: list[BucketSlot], device: torch.device, n_iters: int, use_kernel: bool,
+    mesh: FleetMesh | None = None,
 ) -> np.ndarray:
     """Solve every bucket on `device`: a full bucket runs the sizing
     program (`fleet_size`/`tandem_fleet_size`), a refold bucket the
@@ -570,7 +668,12 @@ def solve_slots(
     columns. Each bucket writes its packed [8, width] result into one
     preallocated [8, total] device tensor; one `.cpu()` copy then brings
     every bucket back (the reference's single device round trip of
-    `_jitted_multi`). Returns that host array, buckets in slot order."""
+    `_jitted_multi`). Returns that host array, buckets in slot order.
+
+    With a `mesh` of more than one device the buckets (padded to a
+    multiple of its size) are split over its devices instead
+    (`_solve_sharded`), and the host array is the same."""
+    mesh = _mesh_key(mesh)
     # compile-vs-execute attribution: the first dispatch of a launch
     # signature in the process is charged to jit_compile_ms (on backend
     # "cuda" the very first one builds or loads the kernel library), every
@@ -579,19 +682,23 @@ def solve_slots(
     # signature as a compile.
     sig = (
         use_kernel, n_iters, str(device),
+        None if mesh is None else tuple(str(d) for d in mesh.devices),
         tuple((s.kind, s.k, s.width, s.cached is None) for s in slots),
     )
     first_compile = sig not in _compiled_sigs
     t0 = time.perf_counter()
-    packed = torch.empty(
-        (8, sum(s.width for s in slots)), dtype=torch.float32, device=device
-    )
-    offset = 0
-    for slot in slots:
-        res = _solve_slot(slot, device, n_iters, use_kernel)
-        pack_result(res, out=packed[:, offset : offset + slot.width])
-        offset += slot.width
-    packed_all = packed.cpu().numpy()
+    if mesh is None:
+        packed = torch.empty(
+            (8, sum(s.width for s in slots)), dtype=torch.float32, device=device
+        )
+        offset = 0
+        for slot in slots:
+            res = _solve_slot(slot, device, n_iters, use_kernel)
+            pack_result(res, out=packed[:, offset : offset + slot.width])
+            offset += slot.width
+        packed_all = packed.cpu().numpy()
+    else:
+        packed_all = _solve_sharded(slots, mesh, n_iters, use_kernel)
     solve_ms = (time.perf_counter() - t0) * 1000.0
     # marked seen only after a dispatch that returned: one that raised
     # (a failed build, an interrupt) must leave the compile to its retry
@@ -621,17 +728,19 @@ def _solve_all(
     device: torch.device,
     n_iters: int,
     use_kernel: bool,
+    mesh: FleetMesh | None = None,
 ) -> tuple[FleetResult | None, FleetResult | None]:
     """Solve aggregated and tandem lanes, bucket by bucket, on `device`
-    (`solve_slots`), and scatter the buckets back into lane order."""
+    or split over `mesh` (`solve_slots`), and scatter the buckets back
+    into lane order."""
     agg_out = _empty_result(plan.num_lanes) if plan is not None and plan.num_lanes else None
     tan_out = (
         _empty_result(tandem.num_lanes) if tandem is not None and tandem.num_lanes else None
     )
-    slots = bucket_slots(plan, tandem)
+    slots = bucket_slots(plan, tandem, _mesh_chunk(mesh))
     if not slots:
         return agg_out, tan_out
-    packed_all = solve_slots(slots, device, n_iters, use_kernel)
+    packed_all = solve_slots(slots, device, n_iters, use_kernel, mesh)
     for slot, res in iter_slot_results(slots, packed_all):
         out = agg_out if slot.kind == "agg" else tan_out
         for field, dst in zip(res, out):
@@ -641,7 +750,8 @@ def _solve_all(
 
 # Solve memo: when both plans replay from the lane-set memo (identical
 # object => identical content) under the same backend and device, the
-# previous FleetResult is bit-identical too — skip the device round trip
+# previous FleetResult is bit-identical too (the mesh is compared by
+# identity, as the reference does) — skip the device round trip
 # entirely. The memoized plans keep their ids alive, so identity is a
 # sound content proxy here.
 _solve_memo: dict = {}
@@ -652,16 +762,20 @@ def _solve_or_replay(
     tandem: TandemPlan | None,
     device: torch.device | None,
     backend: str,
+    mesh: FleetMesh | None = None,
 ) -> tuple[FleetResult | None, FleetResult | None]:
-    """Solve both plans through the selected backend, replaying the
+    """Solve both plans through the selected backend (split over `mesh`
+    where it has more than one device), replaying the
     previous results when the exact plan OBJECTS repeat (see _solve_memo).
     A repeated call on an unchanged fleet therefore measures nothing:
     timed repeats must change the loads in between."""
+    mesh = None if backend == "native" else _mesh_key(mesh)
     memo = _solve_memo.get("last")
     if (
         memo is not None
         and memo["backend"] == backend
         and memo["device"] == device
+        and memo["mesh"] is mesh
         and memo["plan"] is plan
         and memo["tandem"] is tandem
     ):
@@ -677,10 +791,10 @@ def _solve_or_replay(
         tresult = tandem_size_native(tandem.params) if tandem is not None else None
     else:
         result, tresult = _solve_all(
-            plan, tandem, device, DEFAULT_BISECT_ITERS, backend == "cuda"
+            plan, tandem, device, DEFAULT_BISECT_ITERS, backend == "cuda", mesh
         )
     _solve_memo["last"] = {
-        "backend": backend, "device": device, "plan": plan,
+        "backend": backend, "device": device, "mesh": mesh, "plan": plan,
         "tandem": tandem, "results": (result, tresult),
     }
     return result, tresult
@@ -944,6 +1058,51 @@ def _check_backend(backend: str, device) -> torch.device | None:
     return device
 
 
+def _env_mesh(device: torch.device) -> FleetMesh | None:
+    """SIZING_SHARDS env -> a 1-D fleet mesh of that many shards; unset,
+    unparsable, 0 or 1 = no mesh. On a CUDA device the mesh covers that
+    many cards, capped at the cards visible (one card: no mesh); on the
+    CPU (backend "torch", `device="cpu"`) the N shards run on the CPU, as
+    the reference splits over its virtual devices. `fleet_mesh` hands out
+    one object per device list, so the solve memo's and the incremental
+    state's mesh identity holds across cycles."""
+    raw = env_str("SIZING_SHARDS").strip()
+    try:
+        n = int(raw)
+    except ValueError:
+        return None
+    if n <= 1:
+        return None
+    if device.type == "cuda":
+        n = min(n, torch.cuda.device_count())
+        return fleet_mesh(n) if n > 1 else None
+    return fleet_mesh(devices=[device] * n)
+
+
+def _resolve_mesh(
+    mesh: FleetMesh | None, use_mesh: bool, backend: str, device: torch.device | None,
+    env: bool = True,
+) -> FleetMesh | None:
+    """The mesh a call shards over (None: unsharded). `use_mesh` without a
+    `mesh` is every visible CUDA device (`fleet_mesh()`, which raises with
+    none); with neither, `SIZING_SHARDS` decides where `env` is set.
+    Backend "native" ignores the mesh. A mesh must hold devices of the
+    call's device type: the lanes never move to the CPU unless asked."""
+    if backend == "native":
+        return None
+    if use_mesh and mesh is None:
+        mesh = fleet_mesh()
+    if mesh is None and env:
+        mesh = _env_mesh(device)
+    mesh = _mesh_key(mesh)
+    if mesh is not None and any(d.type != device.type for d in mesh.devices):
+        raise ValueError(
+            f"mesh devices {[str(d) for d in mesh.devices]} do not match the "
+            f"solve's device {device}"
+        )
+    return mesh
+
+
 def calculate_fleet(
     system: System,
     backend: str = "cuda",
@@ -952,6 +1111,8 @@ def calculate_fleet(
     lam_tolerance: float = 0.0,
     max_age_cycles: int = 0,
     event_dirty=None,
+    mesh: FleetMesh | None = None,
+    use_mesh: bool = False,
 ) -> int:
     """Replace System.calculate_all() with the batched fleet path.
 
@@ -983,8 +1144,16 @@ def calculate_fleet(
     scan event-authoritative: only the named servers are re-read. It is
     ignored on the non-incremental path, where the full pass is a
     superset anyway.
+
+    `mesh` (a `parallel.mesh.FleetMesh`) splits every bucket's lanes over
+    its devices, on both paths; `use_mesh=True` without one takes every
+    visible CUDA device (`fleet_mesh()`); with neither, the
+    `SIZING_SHARDS` environment variable sets the shard count (unset, 0
+    or 1: none). The decisions are the same bits as without a mesh.
+    Backend "native" ignores the mesh.
     """
     device = _check_backend(backend, device)
+    mesh = _resolve_mesh(mesh, use_mesh, backend, device)
 
     # the candidate table is rebuilt (or cleared) every call — a stale
     # table must never describe lanes of a previous solve
@@ -1002,7 +1171,7 @@ def calculate_fleet(
     ):
         return incremental.incremental_cycle(
             system, device, backend, lam_tolerance, max_age_cycles,
-            event_dirty=event_dirty,
+            event_dirty=event_dirty, mesh=mesh,
         )
     # a non-incremental pass over the state's own System voids the
     # incremental state: its replay claims about these servers go stale
@@ -1042,7 +1211,7 @@ def calculate_fleet(
 
     # the memo holds strong refs to the exact plan objects it solved, so
     # `is` identity (not id()) is the content check
-    result, tresult = _solve_or_replay(plan, tandem, device, backend)
+    result, tresult = _solve_or_replay(plan, tandem, device, backend, mesh)
 
     # -- vectorized writeback (host numpy, f64): per-lane transition
     # penalties, per-server candidate argmin, lazy Allocation views ---------
@@ -1291,11 +1460,16 @@ class FleetBatchPrep:
         system: System,
         backend: str = "cuda",
         device: str | torch.device | None = None,
+        mesh: FleetMesh | None = None,
+        use_mesh: bool = False,
     ):
         device = _check_backend(backend, device)
+        # as the reference's prep: `mesh`/`use_mesh` only, no SIZING_SHARDS
+        mesh = _resolve_mesh(mesh, use_mesh, backend, device, env=False)
         self.system = system
         self.backend = backend
         self.device = device
+        self.mesh = mesh
         names = list(system.servers)
         self.servers = names  # the S axis
         self.n_servers = len(names)
@@ -1364,7 +1538,7 @@ class FleetBatchPrep:
             plan = build_fleet(system, _known_version=known)
             tandem = build_tandem_fleet(system, _known_version=known)
             if plan is not None or tandem is not None:
-                result, tresult = _solve_or_replay(plan, tandem, device, backend)
+                result, tresult = _solve_or_replay(plan, tandem, device, backend, mesh)
             else:
                 result = tresult = None
         finally:
@@ -1807,13 +1981,18 @@ def prepare_fleet_batch(
     system: System,
     backend: str = "cuda",
     device: str | torch.device | None = None,
+    mesh: FleetMesh | None = None,
+    use_mesh: bool = False,
 ) -> FleetBatchPrep:
     """Prepare the rate-independent context of the batched solve ONCE —
     snapshot/plan derivation, the grid solve on `device`, fold columns, the
     zero-load table — for replay over many rate tensors (the Monte Carlo
     ensemble driver's entry point; `calculate_fleet_batch` is this plus
-    one `solve`)."""
-    return FleetBatchPrep(system, backend=backend, device=device)
+    one `solve`). `mesh`/`use_mesh` split the grid solve's lanes over
+    devices, as in `calculate_fleet`."""
+    return FleetBatchPrep(
+        system, backend=backend, device=device, mesh=mesh, use_mesh=use_mesh
+    )
 
 
 def calculate_fleet_batch(
@@ -1822,6 +2001,8 @@ def calculate_fleet_batch(
     backend: str = "cuda",
     device: str | torch.device | None = None,
     chunk_steps: int | None = None,
+    mesh: FleetMesh | None = None,
+    use_mesh: bool = False,
 ) -> FleetBatchResult:
     """Solve T timesteps (or a whole [seeds, T, S] seeded ensemble) of
     per-server arrival rates in one pass: the batched equivalent of the
@@ -1857,7 +2038,10 @@ def calculate_fleet_batch(
 
     `backend`/`device` are `calculate_fleet`'s: "cuda" (the default) on
     the card, or "torch" on any device (`device="cpu"` on a machine
-    without one); `device=None` without CUDA raises.
+    without one); `device=None` without CUDA raises. `mesh`/`use_mesh`
+    split the prep's grid solve over devices (same bits).
     """
-    prep = prepare_fleet_batch(system, backend=backend, device=device)
+    prep = prepare_fleet_batch(
+        system, backend=backend, device=device, mesh=mesh, use_mesh=use_mesh
+    )
     return prep.solve(rates, chunk_steps=chunk_steps)

@@ -126,7 +126,7 @@ class _State:
     """The cross-cycle incremental state (module singleton)."""
 
     __slots__ = (
-        "names", "structure_version", "backend", "device", "kinds", "source",
+        "names", "structure_version", "backend", "device", "mesh", "kinds", "source",
         "la", "choice", "replicas", "cost", "value",
         "pref_rank", "pref_reps", "pref_spot", "pref_chips",
         "applied_system", "solve_system", "greedy", "force_full",
@@ -194,7 +194,7 @@ def _cumsum0(a: np.ndarray) -> np.ndarray:
     return out
 
 
-def _new_state(snap, names, backend, device) -> _State:
+def _new_state(snap, names, backend, device, mesh) -> _State:
     from inferno_tpu_torch.parallel import fleet as F
 
     st = _State()
@@ -202,6 +202,7 @@ def _new_state(snap, names, backend, device) -> _State:
     st.structure_version = snap.structure_version
     st.backend = backend
     st.device = device
+    st.mesh = mesh
     n = len(names)
     st.la = [None] * n
     st.choice = np.full(n, -1, np.int64)
@@ -293,6 +294,7 @@ def incremental_cycle(
     lam_tolerance: float = 0.0,
     max_age_cycles: int = 0,
     event_dirty=None,
+    mesh=None,
 ) -> int:
     """One incremental fleet cycle — the INCREMENTAL_CYCLE=1 body of
     `calculate_fleet` (which owns the routing/eligibility decision).
@@ -301,7 +303,12 @@ def incremental_cycle(
     event-authoritative: only the named servers are re-read and the
     O(fleet) content diff is skipped (`FleetSnapshot.scan_event_update`,
     which falls back to the full poll scan on any doubt). `None` — the
-    default, and the anti-entropy cadence — is the full poll scan."""
+    default, and the anti-entropy cadence — is the full poll scan.
+
+    `mesh` (a `parallel.mesh.FleetMesh`, resolved by `calculate_fleet`)
+    splits the dirty buckets, padded to a multiple of its size, over its
+    devices; a different mesh object rebuilds the state, as a different
+    backend or device does."""
     global _state
     from inferno_tpu_torch.parallel import fleet as F
 
@@ -323,9 +330,10 @@ def incremental_cycle(
         or snap.scan_all_dirty
         or st.backend != backend
         or st.device != device
+        or st.mesh is not mesh
         or st.names != names
     ):
-        st = _state = _new_state(snap, names, backend, device)
+        st = _state = _new_state(snap, names, backend, device, mesh)
         codes = np.full(n_srv, SCAN_FULL, np.int8)
     else:
         codes = snap.scan_codes.copy()
@@ -381,6 +389,7 @@ def incremental_cycle(
 
     # -- gathered solve: FULL lanes -> full kernel, RATE lanes -> refold ----
     slots: list = []
+    chunk = F._mesh_chunk(mesh)
     n_lanes_total = 0
     refold_lanes = 0
 
@@ -400,7 +409,7 @@ def incremental_cycle(
                 t.res.lambda_star[rows], t.res.rate_star[rows], t.res.feasible[rows],
             )
             refold_lanes += len(rows)
-        F.add_bucketed(slots, kind_name, params, batches, rows, cached)
+        F.add_bucketed(slots, kind_name, params, batches, rows, cached, chunk=chunk)
 
     for kind_name in _KIND_NAMES:
         kt = snap.kind_table(kind_name)
@@ -422,7 +431,7 @@ def incremental_cycle(
 
     if slots:
         packed_all = F.solve_slots(
-            slots, device, DEFAULT_BISECT_ITERS, backend == "cuda"
+            slots, device, DEFAULT_BISECT_ITERS, backend == "cuda", mesh
         )
         t0 = time.perf_counter()
         for slot, res in F.iter_slot_results(slots, packed_all):

@@ -898,3 +898,60 @@ def test_incremental_cycles_match_reference():
         assert boundary <= 3
     finally:
         ref_reset_fleet_state()
+
+
+# -- the lane mesh on the incremental path ------------------------------------
+
+
+def _sharded_cycles(spec, mesh) -> list:
+    """Cold, 1% λ, a token-mix change on three servers, then λ again:
+    each cycle's decision surface and dirty counts."""
+    reset_fleet_state()
+    system = System(SystemSpec.from_dict(spec.to_dict()))
+    rng = np.random.default_rng(11)
+    names = list(system.servers)
+    out = []
+    for step in ("cold", "rate", "structure", "rate"):
+        if step == "rate":
+            _perturb(system, rng, 0.01)
+        elif step == "structure":
+            for i in rng.choice(len(names), 3, replace=False):
+                load = system.servers[names[i]].load
+                if load is not None:
+                    load.avg_in_tokens = float(rng.integers(16, 600))
+        _calc(system, mesh=mesh)
+        solve_unlimited(system)
+        d = system.fleet_dirty
+        out.append((_decisions(system), d.dirty_lanes, d.refold_lanes, d.codes.tolist()))
+    return out
+
+
+@pytest.mark.parametrize("m", [1, 2, 4, 8])
+def test_sharded_incremental_cycles_bit_identical(m):
+    """shards ≡ single on the incremental path (aggregated and tandem
+    lanes): every cycle's decision surface, operating point included, is
+    the same bits over `m` CPU shards as unsharded, with the same dirty
+    lanes (the counterpart of tests/test_incremental.py:530-560)."""
+    from inferno_tpu_torch.parallel import fleet_mesh
+
+    spec = fleet_system_spec(200, **FUZZ_SPEC)
+    want = _sharded_cycles(spec, None)
+    assert want[1][2] > 0 and want[2][1] > 0  # a refold cycle, a full-program cycle
+    assert _sharded_cycles(spec, fleet_mesh(devices=["cpu"] * m)) == want
+
+
+def test_new_mesh_rebuilds_the_state():
+    """A different mesh object rebuilds the incremental state (every lane
+    dirty), as a different backend or device does; the same mesh replays."""
+    from inferno_tpu_torch.parallel import fleet_mesh
+
+    system = System(fleet_system_spec(30, **FUZZ_SPEC))
+    two, four = fleet_mesh(devices=["cpu"] * 2), fleet_mesh(devices=["cpu"] * 4)
+    _calc(system, mesh=two)
+    lanes = system.fleet_dirty.dirty_lanes
+    assert lanes > 0
+    _calc(system, mesh=two)
+    assert system.fleet_dirty.dirty_lanes == 0
+    _calc(system, mesh=four)
+    assert fleet_incremental._state.mesh is four
+    assert system.fleet_dirty.dirty_lanes == lanes
