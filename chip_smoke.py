@@ -9,7 +9,7 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build: compiles both kernels (ops/csrc/stats_kernel.cu, the stationary
    solve, and ops/csrc/bisect_kernel.cu, the fused bisection, once per
    metric) with nvcc, one process per object, all at once, into one
-   library in build/kernels/;
+   library in inferno_tpu_torch/ops/_build/;
 3. kernels against their plain torch versions on the card, on synthetic
    cases (P x K sweep over the register widths and a strided width,
    saturated rates, empty tails, caps and batches beyond the grid):
@@ -187,6 +187,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    plain version under the ±1 rule; (d) graft_entry.dryrun_multichip(
    device_count) on NCCL ranks, whose (1, 1) training steps equal the
    one-device steps bit for bit on one card.
+22. the installed copy on the card: a wheel of the tree (built offline
+   with `pip wheel --no-deps --no-build-isolation`) installed with `pip
+   install --target` into a temporary directory; a subprocess whose
+   PYTHONPATH holds only that directory (the checkout off sys.path) builds
+   the kernel library with nvcc inside the installed package
+   (`inferno_tpu_torch/ops/_build/`, build seconds printed beside the
+   card's name and power limit) and sizes phase 4's 10k edge fleet on
+   backend cuda (INCREMENTAL_CYCLE=0); 0 of its 24,156 lanes differ in any
+   bit from the checkout's pass, the decisions are identical, and both
+   launch the main path's 42 + 12, else it raises.
 
 The card's name and power limit (nvidia-smi) are printed first and again
 before the kernels line.
@@ -2892,6 +2902,137 @@ def _entry_match(got, want):
     return int(boundary.sum())
 
 
+# phase 22: the installed copy on the card. The child runs from a `pip
+# install --target` of a wheel of the tree, with the checkout off sys.path.
+P22_PIP_TIMEOUT_S = 300
+P22_RUN_TIMEOUT_S = 600
+_P22_CHILD = """
+import os, pickle, sys, time
+target, repo, out = sys.argv[1:4]
+assert not any(os.path.abspath(p or ".").startswith(repo) for p in sys.path), sys.path
+import torch
+import inferno_tpu_torch
+from inferno_tpu_torch.core.system import System
+from inferno_tpu_torch.ops import cuda_queueing
+from inferno_tpu_torch.parallel import calculate_fleet, fleet
+from inferno_tpu_torch.solver import solve_unlimited
+from inferno_tpu_torch.testing.fleet import fleet_system_spec
+
+package = os.path.join(target, "inferno_tpu_torch")
+assert inferno_tpu_torch.__file__.startswith(package + os.sep), inferno_tpu_torch.__file__
+t0 = time.perf_counter()
+lib = cuda_queueing.build()  # nvcc, inside the installed package
+build_s = time.perf_counter() - t0
+assert os.path.dirname(lib) == os.path.join(package, "ops", "_build"), lib
+os.environ["INCREMENTAL_CYCLE"] = "0"
+system = System(fleet_system_spec(10000, **FLEET_KW))
+cuda_queueing.LAUNCHES = 0
+cuda_queueing.BISECT_LAUNCHES = 0
+calculate_fleet(system, backend="cuda")
+solve_unlimited(system)
+torch.cuda.synchronize()
+counts = (cuda_queueing.LAUNCHES, cuda_queueing.BISECT_LAUNCHES)
+decisions = {}
+for name, server in system.servers.items():
+    a = server.allocation
+    decisions[name] = None if a is None else (
+        a.accelerator, a.num_replicas, a.cost, a.value, a.spot_replicas, a.itl, a.ttft, a.rho)
+with open(out, "wb") as f:
+    pickle.dump(dict(lib=lib, build_s=build_s, build_log=cuda_queueing.BUILD_LOG,
+                     counts=counts, results=fleet._solve_memo["last"]["results"],
+                     decisions=decisions), f)
+"""
+
+
+def _install_copy(tmp):
+    """A wheel of the checkout's tree (a copy without caches or built
+    libraries), installed with `pip install --target`; returns the target."""
+    import shutil
+
+    src = os.path.join(tmp, "src")
+    ignore = shutil.ignore_patterns("__pycache__", "*.pyc", "*.so", "_build")
+    for pkg in ("inferno_tpu", "inferno_tpu_torch"):
+        shutil.copytree(os.path.join(ROOT, pkg), os.path.join(src, pkg), ignore=ignore)
+    shutil.copy(os.path.join(ROOT, "pyproject.toml"), src)
+    wheels, target = os.path.join(tmp, "wheels"), os.path.join(tmp, "site")
+    pip = [sys.executable, "-m", "pip", "--disable-pip-version-check", "--no-input"]
+    subprocess.run([*pip, "wheel", "--no-deps", "--no-build-isolation", "--no-index",
+                    "-w", wheels, src],
+                   check=True, capture_output=True, text=True, timeout=P22_PIP_TIMEOUT_S)
+    (wheel,) = [os.path.join(wheels, w) for w in os.listdir(wheels) if w.endswith(".whl")]
+    subprocess.run([*pip, "install", "--no-deps", "--no-index", "--target", target, wheel],
+                   check=True, capture_output=True, text=True, timeout=P22_PIP_TIMEOUT_S)
+    return target
+
+
+def _phase22(smi, main_counts):
+    """22. the installed copy on the card: nvcc builds the kernel library
+    inside the installed package, and its pass over phase 4's 10k edge
+    fleet equals the checkout's bit for bit."""
+    import pickle
+
+    from inferno_tpu_torch.config.types import SystemSpec
+    from inferno_tpu_torch.core.system import System
+    from inferno_tpu_torch.ops import cuda_queueing
+    from inferno_tpu_torch.parallel import calculate_fleet, reset_fleet_state
+    from inferno_tpu_torch.solver import solve_unlimited
+    from inferno_tpu_torch.testing.fleet import fleet_system_spec
+
+    print(f"22. the installed copy on the card, {smi}")
+    spec = fleet_system_spec(10000, **FLEET_KW)
+    with tempfile.TemporaryDirectory(prefix="inferno-install-") as tmp:
+        t0 = time.perf_counter()
+        target = _install_copy(tmp)
+        print(f"  wheel built and installed with pip --target in "
+              f"{time.perf_counter() - t0:.1f} s")
+        work, out = os.path.join(tmp, "work"), os.path.join(tmp, "child.pkl")
+        os.mkdir(work)
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        env["PYTHONPATH"] = target
+        code = f"FLEET_KW = {FLEET_KW!r}\n" + _P22_CHILD
+        proc = subprocess.run([sys.executable, "-c", code, target, ROOT, out], cwd=work,
+                              env=env, capture_output=True, text=True,
+                              timeout=P22_RUN_TIMEOUT_S)
+        if proc.returncode != 0:
+            raise AssertionError(f"22: the installed copy failed (rc={proc.returncode}):\n"
+                                 f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        with open(out, "rb") as f:
+            child = pickle.load(f)
+    print(f"  the installed copy built {os.path.relpath(child['lib'], target)} (under the "
+          f"--target directory) in {child['build_s']:.1f} s; {smi}")
+    print("  " + child["build_log"].splitlines()[0])
+
+    # the checkout's pass, the same way
+    reset_fleet_state()
+    system = System(SystemSpec.from_dict(spec.to_dict()))
+    os.environ["INCREMENTAL_CYCLE"] = "0"
+    try:
+        cuda_queueing.LAUNCHES = 0
+        cuda_queueing.BISECT_LAUNCHES = 0
+        calculate_fleet(system, backend="cuda")
+        solve_unlimited(system)
+        _sync()
+        counts = (cuda_queueing.LAUNCHES, cuda_queueing.BISECT_LAUNCHES)
+        results = _memo_results()
+        decisions = _decisions(system)
+    finally:
+        del os.environ["INCREMENTAL_CYCLE"]
+    reset_fleet_state()
+    diff = sum(_result_bit_diffs(a, b) for a, b in zip(child["results"], results)
+               if a is not None)
+    lanes = sum(len(a[0]) for a in results if a is not None)
+    same = child["decisions"] == decisions
+    print(f"  installed vs checkout: {diff} of {lanes} lanes differ in a bit; decisions "
+          f"{'identical' if same else 'DIFFER'} ({sum(d is not None for d in decisions.values())} "
+          f"servers allocated); launches stats_kernel + bisect_kernel {child['counts'][0]} + "
+          f"{child['counts'][1]} installed, {counts[0]} + {counts[1]} checkout, "
+          f"{main_counts[0]} + {main_counts[1]} on the main path (phase 4)")
+    if diff or not same:
+        raise AssertionError("22: the installed copy's pass differs from the checkout's")
+    if not (tuple(child["counts"]) == counts == tuple(main_counts)):
+        raise AssertionError(f"22: launches {child['counts']} / {counts}, expected {main_counts}")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0, help="seed of phase 12's loads")
@@ -3152,6 +3293,10 @@ def main() -> int:
     # 21. the lane mesh, the graft entry, the NCCL dry run
     _phase21(smi)
     _stamp("phase 21 done")
+
+    # 22. the installed copy: its own kernel build, the checkout's bits
+    _phase22(smi, (launches, bisect_launches))
+    _stamp("phase 22 done")
 
     replaces = "inferno_tpu/ops/pallas_queueing.py:84"
     print(smi)  # again near the end: a reader of the output's tail sees the card

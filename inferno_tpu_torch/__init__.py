@@ -22,7 +22,8 @@ Monte Carlo and spot-storm replays, and `--trace` replays of recorded
 cycles); and the sharded programs: the fleet solve split over a device
 mesh (`parallel.fleet_mesh`, `SIZING_SHARDS`), the surrogate's (dp, tp)
 training on `torch.distributed` ranks, and the graft entry
-(`graft_entry.entry`, `graft_entry.dryrun_multichip`).
+(`graft_entry.entry`, `graft_entry.dryrun_multichip`); and the invariant
+analyzer over the port's own tree (`python -m inferno_tpu_torch.analysis`).
 """
 
 from inferno_tpu_torch.version import __version__

@@ -12,8 +12,9 @@ without a card. It needs g++ and no CUDA device.
 
 Changes against the reference:
 
-* the library is built into `build/native/` at the repo root, never into
-  the package directory;
+* the library is built beside its source, in this package's directory,
+  as the reference builds it, so a checkout and an installed copy build
+  the same way; a directory that cannot be written raises, naming it;
 * a build or load that fails raises, with g++'s message, from every
   solver call (the reference reports the library unavailable and its
   callers fall back to the scalar analyzer; the port never falls back:
@@ -36,8 +37,7 @@ import numpy as np
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "queueing.cc")
-_REPO_ROOT = os.path.dirname(os.path.dirname(_DIR))
-BUILD_DIR = os.path.join(_REPO_ROOT, "build", "native")
+BUILD_DIR = _DIR  # beside queueing.cc, in the checkout or the installed copy
 GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 
 DEFAULT_BISECT_ITERS = 64  # double precision; deeper than the f32 GPU kernel
@@ -63,13 +63,25 @@ _I = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
 _U8 = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
 
 
+def ensure_build_dir(path: str, what: str) -> None:
+    """Create `path` if needed; raise, naming it, if it cannot be written
+    (the build never moves elsewhere without a word). The kernel library
+    of `ops.cuda_queueing` builds through it too."""
+    try:
+        os.makedirs(path, exist_ok=True)
+    except OSError as e:
+        raise RuntimeError(f"cannot build {what}: {path} cannot be created ({e})") from e
+    if not os.access(path, os.W_OK):
+        raise RuntimeError(f"cannot build {what}: {path} is not writable")
+
+
 def _build(lib_path: str) -> None:
     # Compile to a call-private temp name and os.rename() into the hashed
     # path (atomic on POSIX): two processes building concurrently must
     # never CDLL a half-written .so, and a loser's rename simply
     # overwrites with identical content. The name must be unique per
     # call, not per process — threads share a pid.
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    ensure_build_dir(BUILD_DIR, "the native library")
     tmp_path = f"{lib_path}.tmp.{os.getpid()}.{uuid.uuid4().hex[:8]}"
     cmd = ["g++", *GXX_FLAGS, "-o", tmp_path, _SRC, "-pthread"]
     try:
@@ -185,6 +197,12 @@ def _load() -> ctypes.CDLL:
 def available() -> bool:
     """Whether the native library can be (built and) loaded."""
     return _try_load() is not None
+
+
+def load_error() -> str | None:
+    """Why the library could not be built or loaded (None if it was, or
+    has not been tried)."""
+    return _load_error
 
 
 class NativeFleetResult(NamedTuple):

@@ -28,8 +28,9 @@ loaded with ctypes at the first launch (never at import: this module
 imports without nvcc or CUDA). Like the reference's native build
 (inferno_tpu/native/__init__.py) the library is named by a sha256 of its
 sources and flags, written to a temporary name and renamed into place
-atomically; it goes to `build/kernels/` at the repo root. Nothing is
-caught: a failed nvcc raises with its stderr.
+atomically; it goes to `_build/` beside this module, in the checkout or
+the installed copy alike (a directory that cannot be written raises,
+naming it). Nothing is caught: a failed nvcc raises with its stderr.
 
 `LAUNCHES` and `BISECT_LAUNCHES` count the launches of each kernel (and
 nothing else), so a run can show that the sizing path went through them.
@@ -49,6 +50,7 @@ from typing import NamedTuple
 
 import torch
 
+from inferno_tpu_torch.native import ensure_build_dir
 from inferno_tpu_torch.ops.queueing import (
     BISECT_METRICS,
     TAN_ITL,
@@ -66,8 +68,7 @@ _OBJECTS = (
     *(("bisect_kernel.cu", (f"-DINFERNO_BISECT_METRIC={m}",)) for m in BISECT_METRICS),
 )
 _SOURCES = ("stats_kernel.cu", "bisect_kernel.cu", "lane_solve.cuh", "fold_tail.cuh")
-_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-BUILD_DIR = os.path.join(_REPO_ROOT, "build", "kernels")
+BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
     *_ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC",
@@ -125,11 +126,11 @@ def build() -> str:
     path = library_path()
     if os.path.exists(path):
         return path
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    ensure_build_dir(BUILD_DIR, "the CUDA kernel library")
     tmp = f"{path}.tmp.{os.getpid()}.{uuid.uuid4().hex[:8]}"
     nvcc = _nvcc()
     objects = [f"{tmp}.{i}.o" for i in range(len(_OBJECTS))]
-    t0 = time.perf_counter()
+    t0 = time.perf_counter()  # noqa: INF005 (the build's own duration, reported in BUILD_LOG)
     log = _nvcc_jobs([
         [nvcc, *NVCC_FLAGS, *flags, "-I", _CSRC, "-c", "-o", obj, os.path.join(_CSRC, src)]
         for (src, flags), obj in zip(_OBJECTS, objects)
@@ -138,7 +139,8 @@ def build() -> str:
     for obj in objects:
         os.remove(obj)
     os.rename(tmp, path)
-    BUILD_LOG = f"built {os.path.basename(path)} in {time.perf_counter() - t0:.1f} s\n{log}"
+    seconds = time.perf_counter() - t0  # noqa: INF005 (as above)
+    BUILD_LOG = f"built {os.path.basename(path)} in {seconds:.1f} s\n{log}"
     return path
 
 

@@ -3,12 +3,12 @@
 The port's counterpart of the reference's multi-device programs
 (`__graft_entry__.py` re-executes itself in a subprocess pinned to n
 virtual CPU devices): torch runs one rank a process. `run_ranks` starts
-n interpreters, each `python -m inferno_tpu_torch.parallel.ranks`, with
-`MASTER_ADDR=127.0.0.1`, a free port, its rank and the world size; each
-joins the process group (NCCL on n cards, one card a rank, when the
-caller asks for the card; gloo on the CPU only when the caller asks for
-`device="cpu"`), calls `module:function(**kwargs)` and pickles its return
-value for the parent. A rank that exits non-zero, or a call that outlives
+n interpreters, each `python -m inferno_tpu_torch.parallel.ranks` with
+its rank, the world size, the address 127.0.0.1 and a free port in its
+argv; each joins the process group (NCCL on n cards, one card a rank,
+when the caller asks for the card; gloo on the CPU only when the caller
+asks for `device="cpu"`), calls `module:function(**kwargs)` and pickles
+its return value for the parent. A rank that exits non-zero, or a call that outlives
 its timeout, stops every rank and raises with the failed ranks' output
 tails. Nothing falls back from NCCL to gloo.
 
@@ -28,7 +28,9 @@ import time
 
 import torch
 
-_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+# the directory that holds this package (a checkout's root or an install's
+# site-packages): the children import the same copy as their parent
+_IMPORT_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 _FAIL_GRACE_S = 2.0  # how long the other ranks get to exit after one fails
 
 
@@ -73,18 +75,19 @@ def run_ranks(
 ) -> list:
     """Call `target` ("module:function") on n ranks and return each rank's
     result, in rank order. `device` picks the backend (`rank_backend`);
-    `path` adds import roots (the repo root is always first)."""
+    `path` adds import roots (the directory holding this package is
+    always first, and the children run there, so `-m` finds this copy)."""
     backend = rank_backend(n, device)
     port = _free_port()
     with tempfile.TemporaryDirectory(prefix="inferno-ranks-") as tmp:
         args_path = os.path.join(tmp, "args.pkl")
         with open(args_path, "wb") as f:
             pickle.dump(kwargs or {}, f)
-        env = dict(os.environ)
+        # the children inherit the caller's environment (CUDA, threads)
+        env = dict(os.environ)  # noqa: INF001 (passed through to the ranks, not read)
         env["PYTHONPATH"] = os.pathsep.join(
-            [_REPO_ROOT, *path, *filter(None, [env.get("PYTHONPATH")])]
+            [_IMPORT_ROOT, *path, *filter(None, [env.get("PYTHONPATH")])]
         )
-        env.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), WORLD_SIZE=str(n))
         procs, logs = [], []
         try:
             for rank in range(n):
@@ -93,20 +96,21 @@ def run_ranks(
                 with open(log, "w") as out:
                     procs.append(subprocess.Popen(
                         [sys.executable, "-m", "inferno_tpu_torch.parallel.ranks",
-                         target, backend, tmp],
-                        cwd=_REPO_ROOT, env={**env, "RANK": str(rank)},
-                        stdout=out, stderr=subprocess.STDOUT,
+                         target, backend, tmp, str(rank), str(n), "127.0.0.1", str(port)],
+                        cwd=_IMPORT_ROOT, env=env, stdout=out, stderr=subprocess.STDOUT,
                     ))
-            deadline = time.monotonic() + timeout
+            deadline = time.monotonic() + timeout  # noqa: INF005 (subprocess deadline)
             while any(p.poll() is None for p in procs):
                 if any(p.poll() not in (None, 0) for p in procs):
                     # the others usually fail in a collective right after:
                     # give them a moment, then report every failed rank
-                    grace = time.monotonic() + _FAIL_GRACE_S
-                    while any(p.poll() is None for p in procs) and time.monotonic() < grace:
+                    grace = time.monotonic() + _FAIL_GRACE_S  # noqa: INF005 (subprocess deadline)
+                    while any(p.poll() is None for p in procs):
+                        if time.monotonic() >= grace:  # noqa: INF005 (subprocess deadline)
+                            break
                         time.sleep(0.02)
                     break
-                if time.monotonic() > deadline:
+                if time.monotonic() > deadline:  # noqa: INF005 (subprocess deadline)
                     raise RuntimeError(
                         f"{n} {backend} ranks running {target} timed out after "
                         f"{timeout:.0f} s; rank 0:\n{_tail(logs[0])}"
@@ -132,19 +136,20 @@ def run_ranks(
                     p.wait()
 
 
-def _main(target: str, backend: str, tmp: str) -> None:
+def _main(target: str, backend: str, tmp: str, rank: str, world: str, addr: str,
+          port: str) -> None:
     import importlib
 
     import torch.distributed as dist
 
-    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    rank, world = int(rank), int(world)
     if backend == "nccl":
         torch.cuda.set_device(rank)
     else:
         torch.set_num_threads(1)  # the ranks share the host's cores
     dist.init_process_group(
         backend,
-        init_method=f"tcp://{os.environ['MASTER_ADDR']}:{os.environ['MASTER_PORT']}",
+        init_method=f"tcp://{addr}:{port}",
         rank=rank, world_size=world,
         **({"device_id": torch.device("cuda", rank)} if backend == "nccl" else {}),
     )
@@ -163,4 +168,4 @@ def _main(target: str, backend: str, tmp: str) -> None:
 
 
 if __name__ == "__main__":
-    _main(*sys.argv[1:4])
+    _main(*sys.argv[1:8])

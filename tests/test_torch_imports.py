@@ -7,7 +7,8 @@ run three reconcile cycles, run the planner and a recorded `--trace`
 replay, run the twin CLI and an emulator scenario, run the profiling
 blocks, a tiny profiler sweep and a profile build, and close the HPA loop
 over the port's MiniApiServer on backend native, all through the port on
-the CPU). The scan
+the CPU; the port's invariant analyzer lints the port's tree with torch
+blocked as well). The scan
 also holds every import to what the card's installation has: the
 standard library, torch, numpy, PyYAML, triton, and the port itself.
 """
@@ -38,6 +39,13 @@ def test_scan_covers_the_socket_fixtures_and_native():
     for rel in ("testing/apiserver.py", "testing/hpa.py", "testing/fleet.py",
                 "native/__init__.py"):
         assert ROOT / "inferno_tpu_torch" / rel in files, rel
+
+
+def test_scan_covers_the_analyzer():
+    files = set(_sources())
+    for rel in ("__init__.py", "__main__.py", "core.py", "config_registry.py", "clocks.py",
+                "numerics.py", "locks.py", "purity.py"):
+        assert ROOT / "inferno_tpu_torch" / "analysis" / rel in files, rel
 
 
 def _imported_modules(path: pathlib.Path):
@@ -340,6 +348,23 @@ def test_profiling_blocks_run_with_jax_blocked(tmp_path):
     """)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().splitlines()[-1].startswith("ok")
+
+
+def test_analyzer_runs_with_jax_and_torch_blocked():
+    """The port's analyzer lints its own tree with jax, the reference and
+    torch all blocked: it lints source and needs none of them."""
+    proc = _run_blocked("""
+        sys.modules["torch"] = None
+        from inferno_tpu_torch.analysis.__main__ import main
+
+        rc = main(["--root", ROOT, "--budget-seconds", "30"])
+        assert rc == 0, rc
+        assert not any(m.split(".")[0] in ("jax", "inferno_tpu", "torch")
+                       for m, v in sys.modules.items() if v is not None)
+        print("ok")
+    """.replace("ROOT", repr(str(ROOT))))
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "ok", proc.stdout
 
 
 def test_kernel_module_imports_without_nvcc_or_cuda(tmp_path):
