@@ -197,6 +197,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    backend cuda (INCREMENTAL_CYCLE=0); 0 of its 24,156 lanes differ in any
    bit from the checkout's pass, the decisions are identical, and both
    launch the main path's 42 + 12, else it raises.
+23. the port as it ships: Dockerfile.torch's build command (the
+   prebuild of both libraries, then the wheel) run as it stands on a copy
+   of the port's files with no card visible; the wheel installed with `pip
+   install --no-deps --target`, its tree snapshotted (path, size, sha256)
+   and made read-only; `python -m inferno_tpu_torch.controller.main` run
+   from it in a fresh process (PYTHONPATH the target alone, no CUDA
+   directory on PATH) under the H100 overlay's manager env, against a
+   `fleet_cluster` of P23_VARIANTS variants in a MiniApiServer behind TLS
+   (an openssl cert for IP:127.0.0.1, reached through
+   KUBERNETES_SERVICE_HOST/PORT and SSL_CERT_FILE) and MiniProm over HTTP
+   at phase 19c's seven rates; three cycles, counted on its /debug/profile
+   (a ConfigMap edit wakes the loop after each), /healthz and /readyz
+   answering, SIGTERM and exit 0 within 30 s. It raises unless the process
+   built nothing (BUILD_LOG empty), loaded the shipped kernel library from
+   the target, imported the package from there, launched both kernels and
+   left the installed tree unchanged, and unless every VA's status in the
+   API server equals the process's last decisions, which equal those of
+   the checkout's Reconciler in process under the same env (ROADMAP's ±1
+   rule). Printed: the build and install seconds, the shipped libraries,
+   the time to the first status write, each cycle's spans and Prometheus
+   queries, the process's RSS and device memory, the launches.
 
 The card's name and power limit (nvidia-smi) are printed first and again
 before the kernels line.
@@ -3033,6 +3054,559 @@ def _phase22(smi, main_counts):
         raise AssertionError(f"22: launches {child['counts']} / {counts}, expected {main_counts}")
 
 
+# phase 23: the port as it ships. Dockerfile.torch's build command runs on a
+# copy of the port's files, the wheel is installed with `pip install
+# --no-deps --target`, and `python -m inferno_tpu_torch.controller.main`
+# runs from that read-only copy (no nvcc on PATH) under the H100 overlay's
+# manager env, against a 2,000-variant cluster over sockets: a MiniApiServer
+# behind TLS (RestKubeClient speaks https only) and MiniProm over HTTP.
+# cut from the 5k reconcile cell: the controller's status writes and
+# workload reads are serial HTTPS round trips (about 22 ms a variant a cycle
+# against the MiniApiServer on the card's host), so three cycles of 5,000
+# would not fit the phase's limit (PERF.md section 4)
+P23_VARIANTS = 2000
+P23_CYCLES = 3
+# the shipped ConfigMap's interval (deploy/manifests/configmaps.yaml): the
+# phase wakes the loop after each cycle with a ConfigMap edit (the watch
+# path) instead of waiting it out, and /readyz keeps its 3x budget
+P23_INTERVAL = "60s"
+P23_TIMEOUT_S = 300  # the whole phase, build included
+P23_STOP_S = 30  # SIGTERM to exit
+# the overlay's memory limit must hold the controller's peak RSS with this
+# margin (deploy/overlays/h100/manager-patch.yaml; PERF.md section 4)
+P23_MEMORY_MARGIN = 0.5
+P23_PROM_WINDOW_S = 900.0  # two scrapes hold every rate still for the phase
+P23_PORT_FILES = ("pyproject.toml", "README.md", "inferno_tpu_torch")
+_P23_CHILD = """
+import atexit, json, resource, runpy, sys
+out = sys.argv[1]
+sys.argv = sys.argv[:1]
+
+
+def _rss_kb():
+    with open("/proc/self/status") as f:
+        return int(dict(line.split(":", 1) for line in f if ":" in line)["VmRSS"].split()[0])
+
+
+rss_start_kb = _rss_kb()
+# a forked child's ru_maxrss starts from its parent's: kept to show it
+maxrss_start_kb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+import torch  # what the entry imports first; its share of the RSS is read here
+rss_torch_kb = _rss_kb()
+
+
+def _dump():
+    import inferno_tpu_torch
+    from inferno_tpu_torch.ops import cuda_queueing
+
+    lib = cuda_queueing._lib
+    with open(out, "w") as f:
+        json.dump(dict(
+            build_log=cuda_queueing.BUILD_LOG,
+            lib=None if lib is None else lib._name,
+            launches=[cuda_queueing.LAUNCHES, cuda_queueing.BISECT_LAUNCHES],
+            package=inferno_tpu_torch.__file__,
+            max_memory_reserved=torch.cuda.max_memory_reserved(),
+            ru_maxrss_kb=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss,
+            maxrss_start_kb=maxrss_start_kb, rss_start_kb=rss_start_kb,
+            rss_torch_kb=rss_torch_kb, rss_exit_kb=_rss_kb(),
+        ), f)
+
+
+atexit.register(_dump)
+runpy.run_module("inferno_tpu_torch.controller.main", run_name="__main__")
+"""
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _tree_snapshot(root):
+    """{relative path: (size, sha256)} of every file, and None for every
+    directory, under `root`."""
+    import hashlib
+
+    snap = {}
+    for d, dirs, files in os.walk(root):
+        for name in dirs:
+            snap[os.path.relpath(os.path.join(d, name), root)] = None
+        for name in files:
+            path = os.path.join(d, name)
+            with open(path, "rb") as f:
+                snap[os.path.relpath(path, root)] = (
+                    os.path.getsize(path), hashlib.sha256(f.read()).hexdigest())
+    return snap
+
+
+def _chmod_tree(root, writable):
+    """`chmod -R a-w` (or u+w again, so that the temporary directory can go)."""
+    import stat
+
+    for d, _, files in os.walk(root):
+        for path in [d] + [os.path.join(d, name) for name in files]:
+            mode = os.stat(path).st_mode
+            os.chmod(path, (mode | stat.S_IWUSR) if writable
+                     else mode & ~(stat.S_IWUSR | stat.S_IWGRP | stat.S_IWOTH))
+
+
+def _overlay_env():
+    """The manager container's env and command under deploy/overlays/h100:
+    the base manifest's env with the overlay patch's entries merged in by
+    name (a strategic merge patch's rule for env); the downward-API
+    POD_NAMESPACE takes the Deployment's own namespace."""
+    import yaml
+
+    with open(os.path.join(ROOT, "deploy", "manifests", "manager.yaml")) as f:
+        base = yaml.safe_load(f)
+    with open(os.path.join(ROOT, "deploy", "overlays", "h100", "manager-patch.yaml")) as f:
+        patch = yaml.safe_load(f)
+
+    def manager(doc):
+        (c,) = [c for c in doc["spec"]["template"]["spec"]["containers"]
+                if c["name"] == "manager"]
+        return c
+
+    env = {}
+    for entry in manager(base)["env"] + manager(patch)["env"]:
+        if "value" in entry:
+            env[entry["name"]] = entry["value"]
+        elif entry["valueFrom"]["fieldRef"]["fieldPath"] == "metadata.namespace":
+            env[entry["name"]] = base["metadata"]["namespace"]
+        else:
+            raise AssertionError(f"23: no value for the overlay's {entry['name']}")
+    return env, manager(patch)["command"]
+
+
+def _tls_api(tmp):
+    """A MiniApiServer behind TLS (a self-signed cert for IP:127.0.0.1, made
+    with openssl); returns (server, cert path)."""
+    import ssl
+
+    from inferno_tpu_torch.testing import MiniApiServer
+
+    cert, key = os.path.join(tmp, "api.crt"), os.path.join(tmp, "api.key")
+    subprocess.run(["openssl", "req", "-x509", "-newkey", "rsa:2048", "-nodes", "-keyout",
+                    key, "-out", cert, "-days", "1", "-subj", "/CN=127.0.0.1",
+                    "-addext", "subjectAltName=IP:127.0.0.1"],
+                   check=True, capture_output=True)
+    api = MiniApiServer()
+    ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+    ctx.load_cert_chain(cert, key)
+    api._httpd.socket = ctx.wrap_socket(api._httpd.socket, server_side=True)
+    return api, cert
+
+
+def _load_api(api, cluster):
+    """The in-memory cluster's VariantAutoscalings, Deployments and
+    ConfigMaps, checked against the CRD schema and stored in the API server
+    as its POST handler stores them; returns their number."""
+    objects = [("VariantAutoscaling", va.namespace, va.name, va.to_dict())
+               for va in cluster.list_variant_autoscalings()]
+    objects += [("Deployment", ns, name, dep) for (ns, name), dep in cluster._deployments.items()]
+    objects += [("ConfigMap", ns, name, {"metadata": {"name": name, "namespace": ns},
+                                         "data": data})
+                for (ns, name), data in cluster._configmaps.items()]
+    for kind, ns, name, body in objects:
+        api.validate(kind, body)
+        with api.store.lock:
+            stored = api._stamp(kind, ns, name, body)
+            api.store.objects[(kind, ns, name)] = stored
+            api.store.record(kind, "ADDED", stored)
+    return len(objects)
+
+
+def _get(url):
+    """(status, body) of a GET."""
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=30) as resp:
+        return resp.status, resp.read()
+
+
+def _rss_kb(pid):
+    """VmRSS of a process, in kB."""
+    with open(f"/proc/{pid}/status") as f:
+        fields = dict(line.split(":", 1) for line in f if ":" in line)
+    return int(fields["VmRSS"].split()[0])
+
+
+def _p23_build(tmp):
+    """Dockerfile.torch's build command on a copy of the port's files (no
+    built library, no cache), with no card visible; then the wheel installed
+    with pip --no-deps --target. Returns (target, the shipped libraries
+    {path in the package: (bytes, sha256)})."""
+    import hashlib
+    import shutil
+
+    with open(os.path.join(ROOT, "Dockerfile.torch")) as f:
+        (cmd,) = [line[len("RUN "):].strip() for line in f
+                  if line.startswith("RUN python -m inferno_tpu_torch.tools.prebuild")]
+    src = os.path.join(tmp, "src")
+    os.mkdir(src)
+    ignore = shutil.ignore_patterns("__pycache__", "*.pyc", "*.so", "_build")
+    for name in P23_PORT_FILES:
+        path = os.path.join(ROOT, name)
+        if os.path.isdir(path):
+            shutil.copytree(path, os.path.join(src, name), ignore=ignore)
+        else:
+            shutil.copy(path, src)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""  # a build box without a card
+    t0 = time.perf_counter()
+    proc = subprocess.run(["sh", "-c", cmd], cwd=src, env=env, capture_output=True, text=True,
+                          timeout=P23_TIMEOUT_S)
+    build_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"23: the build command failed (rc={proc.returncode}):\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("inferno_tpu_torch/")]
+    (wheel,) = [os.path.join(src, "dist", w) for w in os.listdir(os.path.join(src, "dist"))]
+    target = os.path.join(tmp, "site")
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-m", "pip", "--disable-pip-version-check", "--no-input",
+                    "install", "--no-deps", "--no-index", "--target", target, wheel],
+                   check=True, capture_output=True, text=True, timeout=P22_PIP_TIMEOUT_S)
+    install_s = time.perf_counter() - t0
+    shipped = {}
+    for d in ("ops/_build", "native"):
+        for name in sorted(os.listdir(os.path.join(target, "inferno_tpu_torch", d))):
+            if not name.endswith(".so"):
+                continue
+            digests = []
+            for tree in (target, src):
+                with open(os.path.join(tree, "inferno_tpu_torch", d, name), "rb") as f:
+                    digests.append(hashlib.sha256(f.read()).hexdigest())
+            if digests[0] != digests[1]:
+                raise AssertionError(f"23: {name} in the wheel is not the one built")
+            path = os.path.join(target, "inferno_tpu_torch", d, name)
+            shipped[os.path.join("inferno_tpu_torch", d, name)] = (os.path.getsize(path),
+                                                                   digests[0])
+    print(f"  build command ({cmd!r}): {build_s:.1f} s with no card visible, of which the "
+          f"libraries (path, bytes, seconds): {'; '.join(lines)}")
+    print(f"  wheel {os.path.basename(wheel)} installed with pip --no-deps --target in "
+          f"{install_s:.1f} s; it ships "
+          + ", ".join(f"{k} ({v[0]} bytes)" for k, v in shipped.items()))
+    return target, shipped
+
+
+def _p23_checkout_records(env, prom_url, cluster):
+    """One in-process cycle of the checkout's Reconciler under the same env
+    (so the same ReconcilerConfig) over the same cluster contents and
+    MiniProm: its decision records."""
+    from inferno_tpu_torch.controller import Reconciler
+    from inferno_tpu_torch.controller.main import prom_config_from_env, reconciler_config_from_env
+    from inferno_tpu_torch.controller.promclient import HttpPromClient
+    from inferno_tpu_torch.parallel import reset_fleet_state
+
+    saved = dict(os.environ)
+    os.environ.update(env)
+    try:
+        config = reconciler_config_from_env()
+        prom_config = prom_config_from_env()
+    finally:
+        os.environ.clear()
+        os.environ.update(saved)
+    if config.compute_backend != env["COMPUTE_BACKEND"] or prom_config.base_url != prom_url:
+        raise AssertionError(f"23: checkout config {config.compute_backend}, "
+                             f"{prom_config.base_url}")
+    reset_fleet_state()
+    rec = Reconciler(cluster, HttpPromClient(prom_config), config)
+    report, ms, launches, _ = _counted_cycle(rec)
+    rec.close()
+    reset_fleet_state()
+    print(f"  the checkout's Reconciler in process (backend {config.compute_backend}, the "
+          f"same env, the same MiniProm, an in-memory copy of the cluster): {ms:.1f} ms host "
+          f"a cycle, spans (ms) {_spans(report)}; launches stats_kernel {launches[0]}, "
+          f"bisect_kernel {launches[1]}")
+    return report.decisions
+
+
+def _p23_compare(api, child_decisions, checkout):
+    """Every VA's status in the API server against the child's last
+    decision records (exactly), and those against the checkout's records
+    (ROADMAP's ±1 rule); returns (boundary variants, variants above one
+    replica)."""
+    from types import SimpleNamespace
+
+    by_variant = {d["variant"]: SimpleNamespace(**{
+        k: d[k] for k in ("variant", "reason", "accelerator", "replicas", "lambda_max_rpm")})
+        for d in child_decisions}
+    if sorted(by_variant) != sorted(r.variant for r in checkout):
+        raise AssertionError("23: the controller and the checkout decided other variants")
+    # the API server lists by name, the in-memory cluster in insertion order
+    mine = [by_variant[r.variant] for r in checkout]
+    boundary = _same_records(checkout, mine, "23 shipped vs checkout")
+    with api.store.lock:
+        vas = [obj for (kind, _, _), obj in api.store.objects.items()
+               if kind == "VariantAutoscaling"]
+    if len(vas) != len(mine):
+        raise AssertionError(f"23: {len(vas)} VAs, {len(mine)} decisions")
+    for obj in vas:
+        meta = obj["metadata"]
+        want = by_variant[f"{meta['name']}:{meta['namespace']}"]
+        alloc = obj.get("status", {}).get("desiredOptimizedAlloc", {})
+        if (alloc.get("numReplicas"), alloc.get("accelerator")) != (want.replicas,
+                                                                    want.accelerator):
+            raise AssertionError(f"23: {meta['name']}: status {alloc} vs the decision "
+                                 f"{want.replicas}/{want.accelerator}")
+    return boundary, sum(d.replicas > 1 for d in mine)
+
+
+def _p23_cluster(n, config_ns):
+    """`fleet_cluster(n)` with the loop's interval set in its ConfigMap."""
+    from inferno_tpu_torch.testing.fleet import fleet_cluster
+
+    cluster = fleet_cluster(n)
+    cm = dict(cluster._configmaps[(config_ns, "inferno-autoscaler-config")])
+    cm["GLOBAL_OPT_INTERVAL"] = P23_INTERVAL
+    cluster.set_configmap(config_ns, "inferno-autoscaler-config", cm)
+    return cluster
+
+
+def _p23_poke(api, config_ns, cert):
+    """An edit of the controller's ConfigMap through the API server (an
+    annotation): its watch event wakes the reconcile loop."""
+    import ssl
+    import urllib.request
+
+    url = (f"https://127.0.0.1:{api.port}/api/v1/namespaces/{config_ns}/configmaps/"
+           "inferno-autoscaler-config")
+    body = {"metadata": {"annotations": {"inferno.test/poke": str(time.time())}}}
+    req = urllib.request.Request(url, method="PATCH", data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/merge-patch+json"})
+    urllib.request.urlopen(req, context=ssl.create_default_context(cafile=cert),
+                           timeout=30).read()
+
+
+def _p23_watch(proc, base, deadline, poke):
+    """Poll the controller's /debug/profile and /debug/decisions until
+    P23_CYCLES cycles are done (a cycle's decision trace is stored after
+    its profile document); after each but the last, `poke()` wakes the
+    loop. Returns the profile documents, the process's VmRSS read as each
+    cycle ended, its highest VmRSS over the polls (every 0.2 s), when the
+    first cycle was seen to end, and the last cycle's trace."""
+    profiles, rss, ends = [], [], []
+    peak = 0
+    probe = f"{base}/debug/decisions?cycles=1&variant=none"
+    while True:
+        if proc.poll() is not None:
+            raise AssertionError(f"23: the controller exited (rc={proc.returncode})")
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"23: {len(profiles)} of {P23_CYCLES} cycles in "
+                                 f"{P23_TIMEOUT_S} s")
+        time.sleep(0.2)
+        peak = max(peak, _rss_kb(proc.pid))
+        try:
+            docs = json.loads(_get(f"{base}/debug/profile")[1])["cycles"]
+            traced = json.loads(_get(probe)[1])["cycles"]
+        except OSError:
+            continue  # not listening yet
+        if not traced or traced[-1]["seq"] != len(docs) or len(docs) == len(profiles):
+            continue
+        profiles.extend(docs[len(profiles):])
+        rss.append(_rss_kb(proc.pid))
+        ends.append(time.time())
+        _stamp(f"23: cycle {len(profiles)} of the controller done")
+        if len(profiles) >= P23_CYCLES:
+            (last,) = json.loads(_get(f"{base}/debug/decisions?cycles=1")[1])["cycles"]
+            return profiles[:P23_CYCLES], rss, peak, ends[0], last
+        poke()
+
+
+def _phase23(smi):
+    """23. the shipped controller: the image's build command, a read-only
+    --target install, `controller.main` over sockets at P23_VARIANTS."""
+    import threading
+
+    from inferno_tpu_torch.emulator.miniprom import MiniProm
+    from inferno_tpu_torch.testing.fleet import FLEET_NS, fleet_targets
+
+    n = P23_VARIANTS
+    print(f"23. the shipped controller: Dockerfile.torch's build command, a read-only "
+          f"pip --target install, python -m inferno_tpu_torch.controller.main at {n} "
+          f"variants over sockets; {smi}")
+    deadline = time.perf_counter() + P23_TIMEOUT_S
+    env, command = _overlay_env()
+    if command != ["python", "-m", "inferno_tpu_torch.controller.main"]:
+        raise AssertionError(f"23: the overlay runs {command}")
+    with tempfile.TemporaryDirectory(prefix="inferno-ship-") as tmp:
+        target, shipped = _p23_build(tmp)
+        before = _tree_snapshot(target)
+        _chmod_tree(target, writable=False)
+        api, cert = _tls_api(tmp)
+        loaded = _load_api(api, _p23_cluster(n, env["CONFIG_NAMESPACE"]))
+        first_write = []
+        real_record = api.store.record
+
+        def record(kind, event, obj):
+            # the first status write that carries a decision (an earlier
+            # one, in collect, writes conditions only)
+            if (not first_write and kind == "VariantAutoscaling"
+                    and obj.get("status", {}).get("desiredOptimizedAlloc", {}).get(
+                        "lastRunTime")):
+                first_write.append(time.time())
+            real_record(kind, event, obj)
+
+        api.store.record = record
+        api.start()
+        # seven arrival rates over the fleet, as in phase 19c
+        by_rate = {r: fleet_targets(n, arrival_rps=r)
+                   for r in (2.0, 10.0, 25.0, 40.0, 60.0, 80.0, 120.0)}
+        rates = sorted(by_rate)
+        prom = MiniProm([(by_rate[rates[i % len(rates)]][i], {"namespace": FLEET_NS})
+                         for i in range(n)], window_seconds=P23_PROM_WINDOW_S)
+        threading.Thread(target=prom._httpd.serve_forever, daemon=True).start()
+        try:
+            prom.scrape_once()
+            time.sleep(1.0)
+            prom.scrape_once()
+            metrics_port, health_port = _free_port(), _free_port()
+            env.update({"METRICS_PORT": str(metrics_port), "HEALTH_PORT": str(health_port),
+                        "PROMETHEUS_BASE_URL": prom.url, "PROMETHEUS_ALLOW_HTTP": "true"})
+            print(f"  cluster: {loaded} objects in a MiniApiServer behind TLS, reached "
+                  f"through KUBERNETES_SERVICE_HOST/PORT and SSL_CERT_FILE; MiniProm over "
+                  f"HTTP, {n} targets at seven arrival rates; the overlay's env "
+                  f"{sorted((k, v) for k, v in env.items() if 'PORT' not in k)}")
+            child, run = _p23_run(tmp, target, env, api, cert, deadline)
+            if not first_write:
+                raise AssertionError("23: the controller wrote no status")
+            run["first_write"] = first_write[0]
+            run["peak_kb"] = max(run["peak_kb"], child["rss_exit_kb"])
+            _p23_report(run, child, target, smi)
+            after = _tree_snapshot(target)
+            changed = sorted(set(before) ^ set(after)
+                             | {k for k in before if k in after and before[k] != after[k]})
+            print(f"  installed tree: {len(before)} paths, {len(changed)} changed by the run")
+            checkout = _p23_checkout_records(env, prom.url,
+                                             _p23_cluster(n, env["CONFIG_NAMESPACE"]))
+            boundary, moved = _p23_compare(api, run["last"]["decisions"], checkout)
+        finally:
+            prom.stop()
+            api.stop()
+            _chmod_tree(target, writable=True)
+
+    print(f"  decisions: all {n} VAs' statuses in the API server equal the controller's "
+          f"last decisions, and those equal the checkout's ({boundary} ±1 boundary "
+          f"variants; {moved} of {n} above one replica)")
+    lib_rel = child["lib"] and os.path.relpath(child["lib"], target)
+    limit = _p23_memory_limit()
+    print(f"  the overlay's memory limit {limit / 2**20:.0f} MiB against the peak RSS "
+          f"{run['peak_kb'] / 1024:.1f} MiB with a {P23_MEMORY_MARGIN:.0%} margin")
+    if child["build_log"] != "":
+        raise AssertionError(f"23: the installed controller built: {child['build_log'][:300]}")
+    if lib_rel not in shipped:
+        raise AssertionError(f"23: loaded {child['lib']}, shipped {sorted(shipped)}")
+    if not child["package"].startswith(os.path.join(target, "inferno_tpu_torch") + os.sep):
+        raise AssertionError(f"23: the package came from {child['package']}")
+    if changed:
+        raise AssertionError(f"23: the run changed the installed tree: {changed[:10]}")
+    if not (child["launches"][0] and child["launches"][1]):
+        raise AssertionError(f"23: launches {child['launches']}")
+    if run["probes"] != {"healthz": 200, "readyz": 200}:
+        raise AssertionError(f"23: probes {run['probes']}")
+    if moved < n // 4:
+        raise AssertionError(f"23: only {moved} variants scaled")
+    if run["peak_kb"] * 1024 * (1 + P23_MEMORY_MARGIN) > limit:
+        raise AssertionError("23: the overlay's memory limit is below the peak RSS and "
+                             "its margin")
+
+
+def _p23_memory_limit():
+    """The overlay's memory limit of the manager container, in bytes."""
+    import yaml
+
+    with open(os.path.join(ROOT, "deploy", "overlays", "h100", "manager-patch.yaml")) as f:
+        patch = yaml.safe_load(f)
+    (c,) = patch["spec"]["template"]["spec"]["containers"]
+    value = c["resources"]["limits"]["memory"]
+    return int(value[:-2]) * {"Ki": 2**10, "Mi": 2**20, "Gi": 2**30}[value[-2:]]
+
+
+def _p23_report(run, child, target, smi):
+    """Print what the controller process did (before any check, so that a
+    failed phase still shows its numbers)."""
+    print(f"  time to first cycle: {run['first_write'] - run['t_start']:.2f} s from process "
+          f"start to the first status write with a decision, "
+          f"{run['first_cycle'] - run['t_start']:.2f} s to the end of the first cycle; "
+          f"/healthz {run['probes']['healthz']}, /readyz {run['probes']['readyz']}; SIGTERM "
+          f"-> exit 0 in {run['stop_s']:.2f} s")
+    for i, (doc, vm_rss) in enumerate(zip(run["profiles"], run["rss"])):
+        phases = ", ".join(f"{k} {v['wall_ms']:.1f}" for k, v in doc["phases"].items())
+        print(f"  cycle {i + 1}: {doc['cycle']['wall_ms']:.1f} ms (spans, ms: {phases}); "
+              f"{doc['counters'].get('prom_queries')} Prometheus queries; RSS {vm_rss} kB")
+    print(f"  the controller process: kernel library "
+          f"{child['lib'] and os.path.relpath(child['lib'], target)} (under the --target "
+          f"directory); BUILD_LOG {child['build_log']!r}; package "
+          f"{os.path.relpath(child['package'], target)}; launches stats_kernel "
+          f"{child['launches'][0]}, bisect_kernel {child['launches'][1]}; peak RSS "
+          f"{run['peak_kb']} kB ({run['peak_kb'] / 1024:.1f} MiB; VmRSS every 0.2 s and "
+          f"at exit, {child['rss_exit_kb']} kB; {child['rss_start_kb']} kB at start, "
+          f"{child['rss_torch_kb']} kB after `import torch`); ru_maxrss {child['ru_maxrss_kb']}"
+          f" kB, {child['maxrss_start_kb']} kB of it at the start (inherited through the "
+          f"fork); device memory reserved at peak "
+          f"{child['max_memory_reserved'] / 2**20:.1f} MiB; {smi}")
+
+
+def _p23_run(tmp, target, env, api, cert, deadline):
+    """The controller entry as shipped: a fresh process in a temporary cwd
+    whose PYTHONPATH is the --target directory alone and whose PATH has no
+    CUDA directory, under `env`, against the TLS API server; P23_CYCLES
+    cycles, then SIGTERM. Returns (what its atexit hook wrote, the run's
+    readings)."""
+    import signal
+
+    child_env = {k: v for k, v in os.environ.items()
+                 if k not in ("PYTHONPATH", "LOG_LEVEL", "INCREMENTAL_CYCLE")}
+    child_env.update(env)
+    child_env.update({
+        "PYTHONPATH": target,
+        "PATH": os.pathsep.join(p for p in os.environ.get("PATH", "").split(os.pathsep)
+                                if "cuda" not in p.lower()),
+        "KUBERNETES_SERVICE_HOST": "127.0.0.1",
+        "KUBERNETES_SERVICE_PORT": str(api.port),
+        "SSL_CERT_FILE": cert,
+        # site-packages that the process cannot write: no bytecode there
+        "PYTHONDONTWRITEBYTECODE": "1",
+    })
+    work, out, log_path = (os.path.join(tmp, name)
+                           for name in ("work", "child.json", "child.log"))
+    os.mkdir(work)
+    base = f"http://127.0.0.1:{env['METRICS_PORT']}"
+    run = {}
+    proc = None
+    try:
+        with open(log_path, "w") as log:
+            run["t_start"] = time.time()
+            proc = subprocess.Popen([sys.executable, "-c", _P23_CHILD, out], cwd=work,
+                                    env=child_env, stdout=log, stderr=subprocess.STDOUT)
+        run["profiles"], run["rss"], run["peak_kb"], run["first_cycle"], run["last"] = \
+            _p23_watch(
+            proc, base, deadline, lambda: _p23_poke(api, env["CONFIG_NAMESPACE"], cert))
+        run["probes"] = {p: _get(f"http://127.0.0.1:{env['HEALTH_PORT']}/{p}")[0]
+                         for p in ("healthz", "readyz")}
+        t_term = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=P23_STOP_S)
+        run["stop_s"] = time.perf_counter() - t_term
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    with open(log_path) as f:
+        tail = f.read()[-3000:]
+    if rc != 0:
+        raise AssertionError(f"23: the controller exited {rc} on SIGTERM:\n{tail}")
+    if run["last"]["errors"] or not run["last"]["optimization_ok"]:
+        raise AssertionError(f"23: the last cycle: {run['last']['errors'][:3]}")
+    with open(out) as f:
+        return json.load(f), run
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0, help="seed of phase 12's loads")
@@ -3297,6 +3871,10 @@ def main() -> int:
     # 22. the installed copy: its own kernel build, the checkout's bits
     _phase22(smi, (launches, bisect_launches))
     _stamp("phase 22 done")
+
+    # 23. the shipped controller: prebuilt wheel, read-only install, 5k over sockets
+    _phase23(smi)
+    _stamp("phase 23 done")
 
     replaces = "inferno_tpu/ops/pallas_queueing.py:84"
     print(smi)  # again near the end: a reader of the output's tail sees the card

@@ -30,7 +30,11 @@ imports without nvcc or CUDA). Like the reference's native build
 sources and flags, written to a temporary name and renamed into place
 atomically; it goes to `_build/` beside this module, in the checkout or
 the installed copy alike (a directory that cannot be written raises,
-naming it). Nothing is caught: a failed nvcc raises with its stderr.
+naming it). Nothing is caught: a failed nvcc raises with its stderr. A
+wheel built from a tree where `build()` has run ships the library under
+that name (`tools/prebuild.py`, the image's build step), and an installed
+copy whose sources hash to it loads it as it is: `build()` returns at its
+exists check, before it needs nvcc or a writable directory.
 
 `LAUNCHES` and `BISECT_LAUNCHES` count the launches of each kernel (and
 nothing else), so a run can show that the sizing path went through them.

@@ -48,6 +48,10 @@ def test_scan_covers_the_analyzer():
         assert ROOT / "inferno_tpu_torch" / "analysis" / rel in files, rel
 
 
+def test_scan_covers_the_prebuild():
+    assert ROOT / "inferno_tpu_torch" / "tools" / "prebuild.py" in set(_sources())
+
+
 def _imported_modules(path: pathlib.Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):

@@ -9,7 +9,9 @@ solver inside the installed package, size an edge fleet on backend
 analyzer over the checkout with its own shipped allowlist. A wheel of a
 tree that already holds a built native library ships it (the package data
 lists `*.so`, as the reference's does), and the installed copy loads that
-library as it is, without a rebuild.
+library as it is, without a rebuild. The same holds for the CUDA kernel
+library (`ops/_build/*.so`): a wheel of a tree that holds it ships it, and
+the installed copy's `cuda_queueing.build()` returns it without nvcc.
 
 Each step has a time limit of its own (the subprocess timeouts below);
 the whole test takes about half a minute on the CPU.
@@ -25,6 +27,8 @@ import sys
 import textwrap
 from functools import cache
 from pathlib import Path
+
+import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 FLEET_KW = dict(shapes_per_variant=3, tandem_every=5, zero_load_every=7,
@@ -47,16 +51,24 @@ def _decisions(system) -> dict:
     }
 
 
-def _install(tmp_path: Path, prebuilt: bool = False) -> Path:
+def _install(tmp_path: Path, prebuilt: bool = False, kernels: bytes | None = None) -> Path:
     """Wheel of the tree (built from a copy without caches or built
     libraries, so the checkout stays untouched), installed into a target.
     With `prebuilt`, the copy builds its native library before the wheel
-    is made."""
+    is made; with `kernels`, the copy holds these bytes at the kernel
+    library's content-addressed path (`cuda_queueing.library_path()`), as
+    a tree where `cuda_queueing.build()` has run does."""
     src = tmp_path / "src"
     ignore = shutil.ignore_patterns("__pycache__", "*.pyc", "*.so", "_build")
     for pkg in ("inferno_tpu", "inferno_tpu_torch"):
         shutil.copytree(REPO / pkg, src / pkg, ignore=ignore)
     shutil.copy(REPO / "pyproject.toml", src)
+    if kernels is not None:
+        from inferno_tpu_torch.ops import cuda_queueing
+
+        rel = Path(cuda_queueing.library_path()).relative_to(REPO)
+        (src / rel).parent.mkdir(parents=True)
+        (src / rel).write_bytes(kernels)
     if prebuilt:
         subprocess.run([sys.executable, "-c",
                         "from inferno_tpu_torch import native; native._load()"],
@@ -185,3 +197,74 @@ def test_installed_copy_loads_a_shipped_library_as_it_is(tmp_path):
     assert got["lib"] == str(shipped)
     assert sorted((pkg / "native").glob("*.so")) == [shipped]
     _assert_sizes_like_the_checkout(got)
+
+
+def _tree(root: Path) -> dict:
+    """{relative path: bytes} of every file under `root`, and None for
+    every directory."""
+    return {str(p.relative_to(root)): None if p.is_dir() else p.read_bytes()
+            for p in sorted(root.rglob("*"))}
+
+
+def test_installed_copy_takes_a_shipped_kernel_library_without_nvcc(tmp_path):
+    """A wheel of a tree that holds the kernel library ships it under its
+    content-addressed name (the package data lists `ops/_build/*.so`), and
+    the installed copy's `build()` returns that file at its exists check:
+    no nvcc (here it raises if called), no write into the installed tree,
+    an empty BUILD_LOG. The library is a placeholder and is never loaded
+    (there is no card here)."""
+    placeholder = b"a kernel library built elsewhere"
+    target = _install(tmp_path, kernels=placeholder)
+    pkg = target / "inferno_tpu_torch"
+    (shipped,) = (pkg / "ops" / "_build").glob("libinferno_kernels-*.so")
+    assert shipped.read_bytes() == placeholder
+    before = _tree(target)
+    work = tmp_path / "work"
+    work.mkdir()
+    code = textwrap.dedent(f"""
+        import json, os, sys
+        repo = {str(REPO)!r}
+        assert not any(os.path.abspath(p or ".").startswith(repo) for p in sys.path), sys.path
+        from inferno_tpu_torch.ops import cuda_queueing
+
+        def no_nvcc():
+            raise AssertionError("nvcc was asked for")
+
+        cuda_queueing._nvcc = no_nvcc
+        path = cuda_queueing.build()
+        print(json.dumps({{"path": path, "log": cuda_queueing.BUILD_LOG,
+                          "loaded": cuda_queueing._lib is not None}}))
+    """)
+    env = {**_env_without_pythonpath(), "PYTHONPATH": str(target),
+           "PYTHONDONTWRITEBYTECODE": "1"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=work, env=env,
+                          capture_output=True, text=True, timeout=RUN_S)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert got == {"path": str(shipped), "log": "", "loaded": False}
+    assert _tree(target) == before
+
+
+
+def test_prebuild_builds_both_libraries_without_a_card(tmp_path, monkeypatch, capsys):
+    """`python -m inferno_tpu_torch.tools.prebuild`, the image's build
+    step: both libraries built (the kernel build is a stand-in here, there
+    is no nvcc), one line each, CUDA never initialised; a library that is
+    missing afterwards raises."""
+    from inferno_tpu_torch import native
+    from inferno_tpu_torch.ops import cuda_queueing
+    from inferno_tpu_torch.tools import prebuild
+
+    kernels = tmp_path / "inferno_tpu_torch" / "ops" / "_build" / "libinferno_kernels-x.so"
+    kernels.parent.mkdir(parents=True)
+    kernels.write_bytes(b"12345")
+    monkeypatch.setattr(cuda_queueing, "build", lambda: str(kernels))
+    monkeypatch.chdir(tmp_path)
+    assert prebuild.main() == 0
+    first, second = capsys.readouterr().out.splitlines()
+    assert first.startswith("inferno_tpu_torch/ops/_build/libinferno_kernels-x.so 5 bytes ")
+    assert os.path.basename(native._lib_path()) in second
+
+    kernels.unlink()
+    with pytest.raises(RuntimeError, match="was not built"):
+        prebuild.main()
