@@ -89,7 +89,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    surrogate_used, with the fit's tensors on cuda; the refit's DecodeParms
    match the same fit on the CPU from the same initial weights (the
    default: the reference's seed-0 weights) within 1e-2 relative; both
-   fits timed.
+   fits timed. The default corrector refits at dp = the visible cards
+   (torch.cuda.device_count()), the CPU fit at the same dp. Then that
+   window and a 37-observation one at dp 4, as on a host of four devices
+   (the batch rounded down to a multiple of 4, as the reference's refit
+   on four devices rounds it, and stepped on the one card): the batch
+   size exactly, the step losses within 1e-4 relative and the DecodeParms
+   within 1e-2 of the CPU's dp-4 refit, and the refit ms at dp 1 and dp 4
+   printed.
 
 14. the planner on the card: (a) a 168-step diurnal week (3600 s steps,
    seed 0) of the 10k edge fleet through calculate_fleet_batch(backend=
@@ -1180,8 +1187,11 @@ def _incremental_phases(smi):
 # full-signature limit) and its 1% movers
 RECONCILE_VARIANTS = 5000
 RECONCILE_MOVE = 0.01
-# phase 13: the corrector's refit on the card against the CPU
+# phase 13: the corrector's refit on the card against the CPU, at the
+# default dp and at REFIT_DP (the batch rounded as on REFIT_DP devices)
 REFIT_RTOL = 1e-2
+REFIT_DP = 4
+REFIT_LOSS_RTOL = 1e-4
 
 
 class _CaptureSystems:
@@ -1416,58 +1426,117 @@ def _phase12(seed, smi):
     reset_fleet_state()
 
 
-def _phase13():
-    """13. the profile corrector's surrogate refit on the card."""
+def _refit_window(seed, n):
+    """Observed ITL that bends mildly with batch and runs about 2.3x the
+    CR line (alpha 5, beta 0.1): out of band, with a positive
+    linearization."""
     import numpy as np
-    import torch
 
+    rng = np.random.default_rng(seed)
+    return [(float(b), (8.0 + 0.4 * b + 0.02 * b * b) * float(rng.uniform(0.97, 1.03)))
+            for b in rng.uniform(2.0, 16.0, size=n)]
+
+
+def _refit(window, **placement):
+    """One corrector refit of `window` (`ProfileCorrector(**placement)`,
+    from the default initial weights, the reference's). Returns the
+    corrected DecodeParms, the refit's host ms and what the fit saw: its
+    batch size, its step losses and where its tensors and AdamW state
+    lay."""
     from inferno_tpu_torch.config.types import DecodeParms, PrefillParms
     from inferno_tpu_torch.models import corrector
     from inferno_tpu_torch.parallel import train
 
-    print("13. profile corrector: surrogate refit on the card")
-    # observed ITL bends mildly with batch and runs about 2.3x the CR
-    # line (alpha 5, beta 0.1): out of band, with a positive linearization
-    rng = np.random.default_rng(13)
-    window = [(float(b), (8.0 + 0.4 * b + 0.02 * b * b) * float(rng.uniform(0.97, 1.03)))
-              for b in rng.uniform(2.0, 16.0, size=32)]
     seen = []
     real = train.fit_surrogate
 
-    def spy(*args, **kwargs):
-        state, losses = real(*args, **kwargs)
+    def spy(x, y, *args, **kwargs):
+        state, losses = real(x, y, *args, **kwargs)
         opt_state = next(iter(state.optimizer.state.values()))
-        seen.append((next(state.model.parameters()).device.type,
-                     opt_state["exp_avg"].device.type, losses[-1]))
+        seen.append({"batch_size": kwargs["batch_size"], "losses": losses,
+                     "params": next(state.model.parameters()).device.type,
+                     "adamw": opt_state["exp_avg"].device.type})
         return state, losses
 
-    out = {}
+    c = corrector.ProfileCorrector(**placement)
+    for conc, itl in window:
+        c.observe("v", corrector.Observation(
+            concurrency=conc, in_tokens=16, out_tokens=64, itl_ms=itl, ttft_ms=3.0))
     train.fit_surrogate = spy
     try:
-        for device in ("cuda", "cpu"):
-            # both from the default initial weights (the reference's)
-            c = corrector.ProfileCorrector(device=None if device == "cuda" else "cpu")
-            for conc, itl in window:
-                c.observe("v", corrector.Observation(
-                    concurrency=conc, in_tokens=16, out_tokens=64, itl_ms=itl, ttft_ms=3.0))
-            (dec, _, state), ms = _timed(lambda: c.corrected_parms(
-                "v", DecodeParms(alpha=5.0, beta=0.1), PrefillParms(gamma=2.0, delta=0.01)))
-            if not state.surrogate_used:
-                raise AssertionError(f"{device}: the refit fell back to ratio scaling")
-            out[device] = (dec, ms, seen[-1])
+        (dec, _, state), ms = _timed(lambda: c.corrected_parms(
+            "v", DecodeParms(alpha=5.0, beta=0.1), PrefillParms(gamma=2.0, delta=0.01)))
     finally:
         train.fit_surrogate = real
-    (gd, gms, gseen), (cd, cms, cseen) = out["cuda"], out["cpu"]
-    if gseen[:2] != ("cuda", "cuda"):
-        raise AssertionError(f"the fit ran on {gseen[:2]}, not on the card")
-    rel = max(abs(gd.alpha - cd.alpha) / abs(cd.alpha), abs(gd.beta - cd.beta) / abs(cd.beta))
-    print(f"  surrogate_used; fit tensors on {gseen[0]} (AdamW state on {gseen[1]}); refit "
-          f"DecodeParms cuda alpha {gd.alpha:.6g} beta {gd.beta:.6g}, cpu alpha {cd.alpha:.6g} "
-          f"beta {cd.beta:.6g}: max rel {rel:.3g} (tolerance {REFIT_RTOL:g}); final loss "
-          f"{gseen[2]:.6g} / {cseen[2]:.6g}")
+    if not state.surrogate_used or not seen:
+        raise AssertionError(f"{placement}: the refit fell back to ratio scaling "
+                             f"({c.refit_errors} refit errors)")
+    return dec, ms, seen[-1]
+
+
+def _rel_parms(a, b):
+    return max(abs(a.alpha - b.alpha) / abs(b.alpha), abs(a.beta - b.beta) / abs(b.beta))
+
+
+def _phase13():
+    """13. the profile corrector's surrogate refit on the card: the
+    default corrector (dp = the visible cards) against the CPU at that dp,
+    then dp 4 on the card against the CPU's dp-4 refit."""
+    import numpy as np
+    import torch
+
+    from inferno_tpu_torch.models import corrector
+    from inferno_tpu_torch.parallel.train import dp_batch_size
+
+    print("13. profile corrector: surrogate refit on the card")
+    window = _refit_window(13, 32)
+    cards = torch.cuda.device_count()
+    default_dp = corrector.ProfileCorrector().refit_dp()
+    if default_dp != cards:
+        raise AssertionError(f"the default refit's dp is {default_dp}, not the {cards} "
+                             f"visible cards")
+    gd, gms, gseen = _refit(window)
+    cd, cms, cseen = _refit(window, device="cpu", dp=cards)
+    if (gseen["params"], gseen["adamw"]) != ("cuda", "cuda"):
+        raise AssertionError(f"the fit ran on {gseen['params']}/{gseen['adamw']}, not the card")
+    rel = _rel_parms(gd, cd)
+    print(f"  surrogate_used; default dp {default_dp} = {cards} visible cards (batch "
+          f"{gseen['batch_size']}); fit tensors on {gseen['params']} (AdamW state on "
+          f"{gseen['adamw']}); refit DecodeParms cuda alpha {gd.alpha:.6g} beta {gd.beta:.6g}, "
+          f"cpu alpha {cd.alpha:.6g} beta {cd.beta:.6g}: max rel {rel:.3g} (tolerance "
+          f"{REFIT_RTOL:g}); final loss {gseen['losses'][-1]:.6g} / {cseen['losses'][-1]:.6g}")
     print(f"  refit time (80 AdamW steps + linearization): cuda {gms:.1f} ms, cpu {cms:.1f} ms")
     if rel > REFIT_RTOL:
         raise AssertionError(f"refit on the card differs from the CPU fit: {rel}")
+
+    # dp 4, as the reference's refit on four local devices: the batch
+    # rounds down to a multiple of 4, and the one card steps on it
+    for n in (32, 37):
+        win = window if n == 32 else _refit_window(37, 37)
+        rounded = dp_batch_size(256, n, REFIT_DP)
+        d1, ms1, seen1 = _refit(win, device="cuda:0")
+        d4, ms4, seen4 = _refit(win, device="cuda:0", dp=REFIT_DP)
+        dc, _, seenc = _refit(win, device="cpu", dp=REFIT_DP)
+        batches = (seen1["batch_size"], seen4["batch_size"], seenc["batch_size"])
+        if batches != (min(n, 256), rounded, rounded):
+            raise AssertionError(f"window {n}: batches {batches} at dp 1, {REFIT_DP} (card) "
+                                 f"and {REFIT_DP} (cpu), not {min(n, 256)}, {rounded}")
+        loss_rel = float(np.max(np.abs(np.subtract(seen4["losses"], seenc["losses"]))
+                                / np.abs(seenc["losses"])))
+        parms_rel = _rel_parms(d4, dc)
+        print(f"  window {n}: dp {REFIT_DP} on the card (batch {rounded}) vs the CPU's dp "
+              f"{REFIT_DP}: step losses max rel {loss_rel:.3g} (tolerance {REFIT_LOSS_RTOL:g}); "
+              f"alpha {d4.alpha:.6g} beta {d4.beta:.6g} vs alpha {dc.alpha:.6g} beta "
+              f"{dc.beta:.6g}: max rel {parms_rel:.3g} (tolerance {REFIT_RTOL:g}); dp 1 alpha "
+              f"{d1.alpha:.6g} beta {d1.beta:.6g} (batch {seen1['batch_size']})")
+        print(f"  window {n}: refit ms (80 AdamW steps + linearization): dp 1 {ms1:.1f} ms, "
+              f"dp {REFIT_DP} {ms4:.1f} ms")
+        if loss_rel > REFIT_LOSS_RTOL:
+            raise AssertionError(f"window {n}: dp-{REFIT_DP} steps on the card differ from "
+                                 f"the CPU's: {loss_rel}")
+        if parms_rel > REFIT_RTOL:
+            raise AssertionError(f"window {n}: dp-{REFIT_DP} refit on the card differs from "
+                                 f"the CPU's: {parms_rel}")
 
 
 # phase 14: the planner on the card. (a) the reference's planner bench

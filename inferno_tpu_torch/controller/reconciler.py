@@ -27,7 +27,9 @@ imports and these changes:
   calculate_fleet(system, backend, device=compute_device, ...)`: on
   backend `cuda` every stationary solve runs on `stats_kernel` and every
   bisection on `bisect_kernel`. The profile corrector's surrogate trains
-  on `compute_device` too;
+  on `compute_device` too, its batch rounded as the reference's refit
+  over every local device rounds it (dp 1 when `compute_device` is set,
+  else the number of visible cards);
 * the flight recorder (`flight_recorder_dir`, env FLIGHT_RECORDER_DIR)
   writes the reference's artifact format through the port's
   `obs/recorder.py`; the port's planner (`--trace`) and either
@@ -423,7 +425,8 @@ class Reconciler:
         if self.config.profile_correction:
             from inferno_tpu_torch.models.corrector import ProfileCorrector
 
-            self.corrector = ProfileCorrector(device=self._corrector_device())
+            device, dp = self._corrector_placement()
+            self.corrector = ProfileCorrector(device=device, dp=dp)
         else:
             self.corrector = None
         # predictive scaling (forecast/): the per-variant arrival-rate
@@ -1147,19 +1150,25 @@ class Reconciler:
         )
         return True
 
-    def _corrector_device(self):
-        """Where the corrector's surrogate trains: COMPUTE_DEVICE, else the
-        CUDA card. Resolved when the Reconciler is built, so a controller
-        with neither fails at startup instead of at its first refit."""
+    def _corrector_placement(self) -> tuple:
+        """Where the corrector's surrogate trains and the dp its batch is
+        rounded to: COMPUTE_DEVICE at dp 1, else the CUDA card at dp = the
+        visible cards, as the reference's refit spans every local device
+        (one device trains either way). Resolved when the Reconciler is
+        built, so a controller with neither fails at startup instead of at
+        its first refit."""
+        import torch
+
         from inferno_tpu_torch.parallel.mesh import fleet_device
 
         try:
-            return fleet_device(self.config.compute_device)
+            device = fleet_device(self.config.compute_device)
         except RuntimeError as e:
             raise RuntimeError(
                 f"the profile corrector has no device ({e}); set "
                 f"COMPUTE_DEVICE=cpu, or PROFILE_CORRECTION=false"
             ) from e
+        return device, 1 if self.config.compute_device is not None else torch.cuda.device_count()
 
     # -- the cycle ----------------------------------------------------------
 

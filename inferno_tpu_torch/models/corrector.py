@@ -61,12 +61,18 @@ bench's closed-loop calibration rely on):
 Port copy of `inferno_tpu/models/corrector.py`, verbatim apart from its
 imports and the surrogate refit. The refit trains the torch surrogate
 (`models/surrogate.py`, `parallel/train.py`) on one device, `device`
-(None = the CUDA card; the reference refits on a dp mesh of every local
-device, which needs a process group the one-process controller does not
-have), from the reference's own initial weights (see
-`models/surrogate.py`). As in the reference, any failure of the refit
-falls back to ratio scaling for that variant only; the port also logs it
-and counts it in `refit_errors`.
+(None = the CUDA card), from the reference's own initial weights (see
+`models/surrogate.py`). The reference refits data-parallel on
+`train_mesh(tp=1)`, over every local device, and rounds its batch down to
+a multiple of that dp; the port draws the same rounded batch
+(`parallel.train.dp_batch_size`) at `dp` (None = the number of visible
+CUDA cards, or 1 with an explicit `device`) and steps on it on its one
+device, which computes the dp-way step: the dp slices are equal, so the
+mean of their means is the batch mean. So a refit on a host of D devices
+gives the reference's profile at the cost of one device's refit. As in
+the reference, any failure of the refit falls back to ratio scaling for
+that variant only; the port also logs it and counts it in
+`refit_errors`.
 """
 
 from __future__ import annotations
@@ -129,11 +135,14 @@ class ProfileCorrector:
         window: int = WINDOW,
         use_surrogate: bool = True,
         device=None,
+        dp: int | None = None,
     ):
         self.residual_band = residual_band
         self.use_surrogate = use_surrogate
-        # where the surrogate trains (None = the CUDA card)
+        # where the surrogate trains (None = the CUDA card), and the
+        # data-parallel width its batch is rounded to (`refit_dp`)
         self.device = device
+        self.dp = dp
         self.window = window
         self._obs: dict[str, deque[Observation]] = {}
         self._state: dict[str, CorrectionState] = {}
@@ -162,6 +171,22 @@ class ProfileCorrector:
 
     def state(self, key: str) -> CorrectionState:
         return self._state.get(key, CorrectionState())
+
+    def refit_dp(self) -> int:
+        """The dp the refit rounds its batch to: `dp`, else 1 on an
+        explicit `device`, else the number of visible CUDA cards, as the
+        reference's `train_mesh(tp=1)` spans every local device. Raises
+        when neither a device nor a card is there."""
+        if self.dp is not None:
+            return self.dp
+        if self.device is not None:
+            return 1
+        import torch
+
+        from inferno_tpu_torch.parallel.mesh import fleet_device
+
+        fleet_device(None)
+        return torch.cuda.device_count()
 
     # -- correction ----------------------------------------------------------
 
@@ -272,7 +297,7 @@ class ProfileCorrector:
         if hi - lo < 1.0:
             return None  # no spread: a line through one point is noise
         from inferno_tpu_torch.models.surrogate import featurize, surrogate_forward
-        from inferno_tpu_torch.parallel.train import fit_surrogate
+        from inferno_tpu_torch.parallel.train import dp_batch_size, fit_surrogate
 
         def feats(c: np.ndarray, in_toks: np.ndarray, out_toks: np.ndarray) -> np.ndarray:
             n = c.shape[0]
@@ -298,8 +323,11 @@ class ProfileCorrector:
             ],
             axis=-1,
         ).astype(np.float32)
+        # fit_surrogate's default batch of 256, rounded as the reference's
+        # dp-way refit rounds it
+        batch = dp_batch_size(256, len(window), self.refit_dp())
         state, _ = fit_surrogate(
-            x, y, device=self.device, epochs=80, learning_rate=3e-3,
+            x, y, device=self.device, epochs=80, batch_size=batch, learning_rate=3e-3,
         )
 
         probe = np.linspace(lo, hi, 16)

@@ -159,6 +159,14 @@ def train_step(state: TrainState, x: torch.Tensor, y: torch.Tensor) -> float:
     return float(loss.detach())
 
 
+def dp_batch_size(batch_size: int, n: int, dp: int) -> int:
+    """The batch a dp-way data-parallel step draws from `n` rows: rounded
+    down to a multiple of dp (at least dp), as the reference's. One device
+    stepping on this batch computes the dp-way step: the dp slices are
+    equal, so the mean of their means is the batch mean."""
+    return max(dp, (min(batch_size, n) // dp) * dp)
+
+
 def fit_surrogate(
     x: np.ndarray,
     y: np.ndarray,
@@ -179,8 +187,7 @@ def fit_surrogate(
     device = fleet_device(device)
     state = init_train_state(device, cfg, learning_rate, seed, mesh)
     n = x.shape[0]
-    dp, _ = _axis(mesh, DP_AXIS)
-    batch_size = max(dp, (min(batch_size, n) // dp) * dp)
+    batch_size = dp_batch_size(batch_size, n, _axis(mesh, DP_AXIS)[0])
     rng = np.random.default_rng(seed)
     losses = []
     for _ in range(epochs):

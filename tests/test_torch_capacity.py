@@ -379,6 +379,119 @@ def test_quota_binds_before_pool():
     assert loose.servers["s"].allocation is not None and not loose.degradations
 
 
+def test_capacity_spec_quota_and_region_roundtrip():
+    """CapacitySpec.quotas and AcceleratorSpec.region survive the
+    to_dict/from_dict wire round trip (ConfigMap/JSON path), in the
+    reference's wire form."""
+    from inferno_tpu.config.types import AcceleratorSpec as RefAcceleratorSpec
+    from inferno_tpu.config.types import CapacitySpec as RefCapacitySpec
+
+    cap = CapacitySpec(chips={"v5e": 64}, quotas={"v5e/us-east1": 16})
+    assert CapacitySpec.from_dict(cap.to_dict()) == cap
+    assert CapacitySpec.from_dict({"chips": {"v5e": 4}}).quotas == {}
+    acc = AcceleratorSpec(name="v5e-4", cost_per_chip_hr=1.0, region="us-east1")
+    assert AcceleratorSpec.from_dict(acc.to_dict()).region == "us-east1"
+    assert cap.to_dict() == RefCapacitySpec.from_dict(cap.to_dict()).to_dict()
+    assert acc.to_dict() == RefAcceleratorSpec.from_dict(acc.to_dict()).to_dict()
+
+
+def test_sizing_cache_invalidates_on_quota_change():
+    """Acceptance wiring: quota state joins the sizing-cache input
+    signature — editing a quota is a structural miss, exactly like a
+    capacity edit."""
+    from inferno_tpu_torch.controller.sizing_cache import (
+        SizingCache,
+        server_signature,
+        system_fingerprint,
+    )
+
+    spec = _edge_spec(shapes_per_variant=2)
+    system = System(spec)
+    calculate_fleet(system, **CPU)
+    name, server = next(iter(system.servers.items()))
+    fp1 = system_fingerprint(system)
+    sig1 = server_signature(server, system, fp1)
+    cache = SizingCache(rel_tolerance=0.05)
+    lam = server.load.arrival_rate
+    cache.store(name, sig1, lam, server.all_allocations)
+    assert cache.lookup(name, sig1, lam, server.cur_allocation) is not None
+
+    system.quotas["v5e/us-east1"] = 32
+    fp2 = system_fingerprint(system)
+    sig2 = server_signature(server, system, fp2)
+    assert sig2 != sig1
+    assert cache.lookup(name, sig2, lam, server.cur_allocation) is None
+
+
+def test_optimizer_result_carries_degradations():
+    """Optimizer.optimize surfaces the solve's degradation events so the
+    reconciler (and a benchmark) read them without reaching into the
+    System."""
+    spec = _limited(_edge_spec(shapes_per_variant=2), 0.5)
+    system = System(spec)
+    calculate_fleet(system, **CPU)
+    result = optimize(system, spec.optimizer)
+    assert result.degradations
+    assert result.degradations == system.degradations
+
+
+def test_constrained_budget_500_variants():
+    """Fast-tier regression guard (mirrors the 500-variant sizing
+    budget): a constrained 500-variant solve stays within a fixed
+    multiple of the unconstrained pass on the same fleet — a return of
+    O(servers x candidates) dict inflation cannot land silently."""
+    import time
+
+    from inferno_tpu_torch.solver.solver import solve_unlimited
+    from inferno_tpu_torch.testing.fleet import perturb_loads
+
+    spec = fleet_system_spec(500, shapes_per_variant=1)
+    cap = fleet_capacity(spec, 0.8, device="cpu")
+    reset_fleet_state()
+
+    def timed(constrained: bool) -> float:
+        reset_fleet_state()
+        s = fleet_system_spec(500, shapes_per_variant=1)
+        if constrained:
+            s.capacity = CapacitySpec(chips=cap)
+            s.optimizer = OptimizerSpec(unlimited=False)
+        system = System(s)
+        calculate_fleet(system, **CPU)  # warm-up, uncounted
+        times = []
+        for _ in range(3):
+            perturb_loads(system)
+            t0 = time.perf_counter()
+            calculate_fleet(system, **CPU)
+            if constrained:
+                solve_greedy_fleet(system, s.optimizer)
+            else:
+                solve_unlimited(system)
+            times.append((time.perf_counter() - t0) * 1000.0)
+        return min(times)
+
+    unconstrained_ms = timed(False)
+    constrained_ms = timed(True)
+    # 3x the unconstrained pass with a floor against timer noise on a
+    # loaded box (same guard philosophy as the sizing budget test)
+    budget = 3.0 * max(unconstrained_ms, 100.0)
+    assert constrained_ms <= budget, (
+        f"constrained 500-variant solve took {constrained_ms:.0f}ms "
+        f"(unconstrained {unconstrained_ms:.0f}ms, budget {budget:.0f}ms); "
+        "the vectorized greedy path regressed"
+    )
+
+
+def test_capacity_suite_stays_in_fast_tier():
+    """No test in this module may carry the `slow` marker — the parity
+    and budget assertions must stay inside tier-1's `-m 'not slow'`
+    run."""
+    import pathlib
+
+    marker = "mark." + "slow"  # split so this line doesn't self-match
+    text = (pathlib.Path(__file__).parent / "test_torch_capacity.py").read_text()
+    assert marker not in text
+
+
 # -- the port against the JAX reference ---------------------------------------
 
 

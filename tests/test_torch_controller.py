@@ -17,10 +17,10 @@ only the rounding. `scalar` against `scalar` is pure Python
 in both packages and must match bit for bit. The profile corrector's state
 per variant (active, surrogate used) matches exactly; where the surrogate
 refit ran, its linearized DecodeParms agree within 1e-2 relative (80 f32
-AdamW steps from the same initial weights; measured ~2e-5). The port's
-refit trains on one device, so the reference's trains on a one-device mesh
-here: on a wider mesh it rounds its batch down to a multiple of the
-data-parallel width.
+AdamW steps from the same initial weights; measured ~2e-5). The
+reference's refit trains on a mesh of its 8 virtual devices and rounds its
+batch down to a multiple of 8; the port's refits on the same dp
+(`test_torch_held_cycle.at_reference_dp`).
 """
 
 from __future__ import annotations
@@ -31,12 +31,12 @@ import math
 
 import numpy as np
 import pytest
+import torch
 
 from inferno_tpu.controller import crd as r_crd
 from inferno_tpu.controller import kube as r_kube
 from inferno_tpu.controller import reconciler as r_rec
 from inferno_tpu.parallel import fleet as r_fleet
-from inferno_tpu.parallel import train as r_train
 from inferno_tpu.testing import fleet as r_fix
 from inferno_tpu_torch.controller import crd as p_crd
 from inferno_tpu_torch.controller import kube as p_kube
@@ -44,12 +44,24 @@ from inferno_tpu_torch.controller import reconciler as p_rec
 from inferno_tpu_torch.controller.watch import SOURCE_WATCH
 from inferno_tpu_torch.parallel import fleet as p_fleet
 from inferno_tpu_torch.testing import fleet as p_fix
+from test_torch_held_cycle import at_reference_dp
 
 CFG_NS = "inferno-system"
 NS = "fleet"
 RTOL = 1e-4
 ATOL = 2e-4  # two units of DecisionRecord's 4-decimal rounding
 REFIT_RTOL = 1e-2
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The surrogate refits here are small, and the tests run beside other
+    test workers: torch's intra-op threads would only contend with them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 PKGS = {
     "ref": (r_crd, r_kube, r_rec, r_fix, r_fleet),
@@ -236,6 +248,8 @@ def make_reconciler(pkg: str, scn: dict, backend: str, **cfg):
         kube=cluster, prom=fix.fleet_fake_prom(scn["rows"](0), grouped=scn["grouped"]),
         config=rec_mod.ReconcilerConfig(**kw),
     )
+    if pkg == "port":
+        at_reference_dp(rec.corrector)
     return rec, cluster
 
 
@@ -360,12 +374,10 @@ def assert_same_cycle(a: dict, b: dict) -> None:
 
 
 @pytest.mark.parametrize("name", sorted(SCENARIOS))
-def test_port_cycles_match_reference(name, monkeypatch):
+def test_port_cycles_match_reference(name):
     """Four or more cycles (cold; unchanged; 1/4 of arrival rates moved;
     token mix moved on 1/5; unchanged) of each scenario: the port on
     backend torch against the reference on backend jax."""
-    real_mesh = r_train.train_mesh
-    monkeypatch.setattr(r_train, "train_mesh", lambda tp=2: real_mesh(n_devices=1, tp=tp))
     scn = SCENARIOS[name]()
     ref = run_cycles("ref", scn, "jax", cycles=scn["cycles"])
     port = run_cycles("port", scn, "torch", cycles=scn["cycles"])

@@ -32,6 +32,16 @@ DECODE = dict(alpha=5.0, beta=0.1)
 PREFILL = dict(gamma=2.0, delta=0.01)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The surrogate refits here are small, and the tests run beside other
+    test workers: torch's intra-op threads would only contend with them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _observations(n: int, seed: int, alpha: float = 5.0, beta: float = 0.1) -> list[dict]:
     """`n` observations whose ITL bends quadratically away from the linear
     profile alpha + beta * b (out of band, with spread): the refit's

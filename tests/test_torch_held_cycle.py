@@ -20,7 +20,10 @@ expectations are the reference's own. A stand-in corrector that a test
 sets on the port's reconciler is set on the reference's too. A cluster or Prometheus of another
 type (a subclass that injects faults, a client over sockets) runs the
 port alone. The reference's reconciler keeps its own state across cycles
-(corrector, forecasters, sizing cache), as the port's does.
+(corrector, forecasters, sizing cache), as the port's does. The port's
+corrector refits at the reference's dp (`at_reference_dp`): the
+reference's refit spans its 8 virtual devices and rounds its batch to a
+multiple of 8.
 
 The cases at the end hold the rule itself.
 """
@@ -32,6 +35,7 @@ import dataclasses
 import logging
 import math
 
+import jax
 import pytest
 
 from inferno_tpu.controller import kube as r_kube
@@ -152,15 +156,31 @@ class HeldReconciler:
             self._ref.close()
 
 
+def reference_dp() -> int:
+    """The dp of the reference's refit mesh, `train_mesh(tp=1)` over every
+    local device (8 under tests/conftest.py)."""
+    return len(jax.devices())
+
+
+def at_reference_dp(corrector):
+    """The port's corrector, set to round its refit batch to
+    `reference_dp()`."""
+    if corrector is not None:
+        corrector.dp = reference_dp()
+    return corrector
+
+
 def held_reconciler(kube, prom, config: p_rec.ReconcilerConfig, **kw) -> HeldReconciler:
     """The port's `Reconciler(kube, prom, config, **kw)`, held to the
-    reference's when `kube` is an InMemoryCluster and `prom` a FakeProm."""
+    reference's when `kube` is an InMemoryCluster and `prom` a FakeProm;
+    then the port's corrector refits on the reference's dp."""
     port = p_rec.Reconciler(kube=kube, prom=prom, config=config, **kw)
     ref = None
     if type(kube) is p_kube.InMemoryCluster and type(prom) is p_prom.FakeProm:
         ref = r_rec.Reconciler(kube=r_kube.InMemoryCluster(), prom=r_prom.FakeProm(),
                                config=_ref_config(config))
         ref.log = _REF_LOG
+        at_reference_dp(port.corrector)
     return HeldReconciler(port, ref)
 
 

@@ -193,6 +193,29 @@ def test_solve_stats_edge_cases(case):
     _assert_stats_close(_stats(rpq.solve_stats, jnp.asarray(lam), ref_grid), got)
 
 
+def test_padding_lanes_are_neutral():
+    """test_pallas.py:109 on the port: five lanes solved alone equal the
+    same five lanes solved among eight (the Pallas kernel pads P to its
+    tile, the CUDA kernel to its block), through the plain version and
+    the wrapper, and the five agree with the reference's Pallas solve."""
+    rng = np.random.default_rng(3)
+    params8 = _fleet_np(8, rng)
+    # keep caps on the grid so this tests padding, not cap truncation
+    params8 = params8._replace(occupancy_cap=np.minimum(params8.occupancy_cap, 128))
+    params5 = rq.FleetParams(*(a[:5] for a in params8))
+    lam8 = rng.uniform(0.001, 0.01, 8).astype(np.float32)
+    grid5 = tq._make_grid(_port(params5), 128)
+    grid8 = tq._make_grid(_port(params8), 128)
+    for fn in (tq._solve_stats, cq.solve_stats):
+        got5 = _stats(fn, torch.from_numpy(lam8[:5]), grid5)
+        got8 = _stats(fn, torch.from_numpy(lam8), grid8)
+        for f5, f8 in zip(got5, got8):
+            assert f5.shape == (5,)
+            np.testing.assert_allclose(f5, f8[:5], rtol=1e-6, atol=0.0)
+    ref5 = _stats(rpq.solve_stats, jnp.asarray(lam8[:5]), rq._make_grid(_ref(params5), 128))
+    _assert_stats_close(ref5, got5)
+
+
 @pytest.mark.parametrize("logq", [-1.0, -1e-7, 0.0, 1e-7, 1.0])
 def test_fold_tail_matches_reference(logq):
     rng = np.random.default_rng(5)

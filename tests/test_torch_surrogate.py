@@ -38,10 +38,21 @@ from inferno_tpu_torch.parallel.train import (
     ADAMW_WEIGHT_DECAY,
     fit_surrogate,
 )
+from test_torch_held_cycle import reference_dp
 
 FWD_ATOL = 1e-5
 LOSS_RTOL = 1e-4
 REFIT_RTOL = 1e-2
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The surrogate refits here are small, and the tests run beside other
+    test workers: torch's intra-op threads would only contend with them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _features(n: int, seed: int) -> np.ndarray:
@@ -108,9 +119,9 @@ def test_first_training_losses_match_reference():
     assert ADAMW_WEIGHT_DECAY == 1e-4  # optax.adamw's default, not torch's
 
 
-def _window(rng) -> list[tuple[float, float]]:
+def _window(rng, n: int = 32) -> list[tuple[float, float]]:
     beta2 = 0.15
-    concs = rng.uniform(2.0, 16.0, size=32)
+    concs = rng.uniform(2.0, 16.0, size=n)
     return [
         (float(b), (5.0 + 0.1 * b + beta2 * b * b) * float(rng.uniform(0.97, 1.03)))
         for b in concs
@@ -127,14 +138,17 @@ def _feed(corrector, obs_cls, points) -> None:
 def test_corrector_refit_matches_reference():
     """A 32-observation window whose residual is out of band: both
     correctors, each with its default initial weights, take the surrogate
-    path and their linearized DecodeParms agree."""
+    path and their linearized DecodeParms agree. 32 is a multiple of the
+    reference's 8 devices, so its dp rounding leaves the batch whole;
+    tests/test_torch_refit_dp.py holds windows of 12, 30 and 37, which it
+    rounds down. The port refits at the reference's dp."""
     points = _window(np.random.default_rng(0))
     ref = r_corr.ProfileCorrector()
     _feed(ref, r_corr.Observation, points)
     r_dec, _, r_state = ref.corrected_parms(
         "v", RDecode(alpha=5.0, beta=0.1), RPrefill(gamma=2.0, delta=0.01)
     )
-    port = p_corr.ProfileCorrector(device="cpu")
+    port = p_corr.ProfileCorrector(device="cpu", dp=reference_dp())
     _feed(port, p_corr.Observation, points)
     p_dec, _, p_state = port.corrected_parms(
         "v", DecodeParms(alpha=5.0, beta=0.1), PrefillParms(gamma=2.0, delta=0.01)
