@@ -111,7 +111,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    a 10k one-shape fleet over 168 steps through replay_montecarlo(cuda):
    three kept members bit-identical to their serial calculate_fleet_batch,
    their envelope inputs equal to aggregate_replay, and an 8-seed
-   sub-ensemble at chunk_steps=7 identical to the default chunking; (c)
+   sub-ensemble at chunk_steps=7 identical to the default chunking, and
+   with mesh=fleet_mesh(devices=["cuda:0"] * 4) identical to unsharded,
+   its prep launching each kernel exactly 4x the unsharded prep's; (c)
    storm replays of a 200-variant fleet (48 steps of 600 s, the canonical
    spot tier): pre-positioning strictly cuts violation-seconds at a cost
    overhead of at most 10%, and the cuda and torch reports (single storm
@@ -188,12 +190,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    differing in any bit from the unsharded solve and identical
    decisions, else it raises; the launches of both kernels per shard
    (the unsharded pass's, times the shards); warm full passes, sharded
-   and unsharded; (b) six rows of the diurnal week through
-   calculate_fleet_batch with the 4-shard mesh equal to the unsharded
-   prep; (c) graft_entry.entry() on the card (4 + 2 launches) against the
-   plain version under the ±1 rule; (d) graft_entry.dryrun_multichip(
-   device_count) on NCCL ranks, whose (1, 1) training steps equal the
-   one-device steps bit for bit on one card.
+   and unsharded; (b) the public entries parallel.solve_fleet and
+   solve_tandem_fleet (backend cuda) on the plans of a cold full pass:
+   0 lanes differing in any bit from what calculate_fleet(cuda) solved
+   for them, with the main path's launches for buckets of their kind
+   (4 + 2 an aggregated bucket, 10 + 2 a tandem one), and with the
+   4-shard mesh the same bits at exactly 4x the launches; (c) six rows
+   of the diurnal week through calculate_fleet_batch with the 4-shard
+   mesh equal to the unsharded prep; (d) graft_entry.entry() on the card
+   (4 + 2 launches) against the plain version under the ±1 rule; (e)
+   graft_entry.dryrun_multichip(device_count) on NCCL ranks, whose (1, 1)
+   training steps equal the one-device steps bit for bit on one card.
 22. the installed copy on the card: a wheel of the tree (built offline
    with `pip wheel --no-deps --no-build-isolation`) installed with `pip
    install --target` into a temporary directory; a subprocess whose
@@ -1550,6 +1557,7 @@ MC_SEEDS = 200
 MC_KEEP = (0, 99, 199)
 MC_SUB_SEEDS = 8
 MC_SUB_CHUNK = 7
+MC_SUB_SHARDS = 4
 STORM_VARIANTS = 200
 STORM_STEPS = 48
 STORM_STEP_S = 600.0
@@ -1698,7 +1706,8 @@ def _phase14b():
     import numpy as np
 
     from inferno_tpu_torch.core.system import System
-    from inferno_tpu_torch.parallel import calculate_fleet_batch, reset_fleet_state
+    from inferno_tpu_torch.ops import cuda_queueing
+    from inferno_tpu_torch.parallel import calculate_fleet_batch, fleet_mesh, reset_fleet_state
     from inferno_tpu_torch.planner.montecarlo import replay_montecarlo
     from inferno_tpu_torch.planner.replay import aggregate_replay
     from inferno_tpu_torch.planner.scenarios import (
@@ -1740,17 +1749,32 @@ def _phase14b():
         print(f"  member {k} (seed {members[k]}): choice and replicas bit-identical to its "
               f"serial calculate_fleet_batch; envelope inputs equal to aggregate_replay "
               f"(total ${serial['cost']['total_usd']:.2f})")
-    sub = {}
-    for chunk in (None, MC_SUB_CHUNK):
+    sub, launches = {}, {}
+    mesh = fleet_mesh(devices=["cuda:0"] * MC_SUB_SHARDS)
+    for label, chunk, m in (("default", None, None), ("chunked", MC_SUB_CHUNK, None),
+                            ("sharded", None, mesh)):
         reset_fleet_state()
+        cuda_queueing.LAUNCHES = 0
+        cuda_queueing.BISECT_LAUNCHES = 0
         doc = replay_montecarlo(system, "flash_crowd", steps, 3600.0, seeds=MC_SUB_SEEDS,
-                                backend="cuda", per_seed=True, chunk_steps=chunk)
+                                backend="cuda", per_seed=True, chunk_steps=chunk, mesh=m)
+        launches[label] = (cuda_queueing.LAUNCHES, cuda_queueing.BISECT_LAUNCHES)
         doc.pop("profile")
-        sub[chunk] = doc
-    if sub[None] != sub[MC_SUB_CHUNK]:
+        sub[label] = doc
+    if sub["default"] != sub["chunked"]:
         raise AssertionError("14(b): chunk_steps changed the ensemble's report")
     print(f"  {MC_SUB_SEEDS}-seed sub-ensemble at chunk_steps={MC_SUB_CHUNK} identical to the "
           "default chunking")
+    base = launches["default"]
+    print(f"  {MC_SUB_SEEDS}-seed sub-ensemble with mesh= {MC_SUB_SHARDS} shards on cuda:0: "
+          f"report {'identical to' if sub['sharded'] == sub['default'] else 'DIFFERS from'} "
+          f"the unsharded one; prep launches stats_kernel {launches['sharded'][0]}, "
+          f"bisect_kernel {launches['sharded'][1]} (unsharded {base[0]}, {base[1]})")
+    if sub["sharded"] != sub["default"]:
+        raise AssertionError("14(b): replay_montecarlo(mesh=) changed the ensemble's report")
+    if launches["sharded"] != (base[0] * MC_SUB_SHARDS, base[1] * MC_SUB_SHARDS) or not all(base):
+        raise AssertionError(f"14(b): the sharded prep launched {launches['sharded']}, expected "
+                             f"{MC_SUB_SHARDS} x {base}")
     reset_fleet_state()
 
 
@@ -2866,6 +2890,55 @@ def _phase21_incremental(spec, mesh, label):
     return out
 
 
+def _phase21_entries(spec, mesh):
+    """21(b). the public solve entries on the card: solve_fleet and
+    solve_tandem_fleet on the plans of a cold full pass give what
+    calculate_fleet(cuda) solved for them, bit for bit, launching both
+    kernels as the main path does for buckets of their kind; over `mesh`
+    the same bits at mesh.size x the launches."""
+    from inferno_tpu_torch.config.types import SystemSpec
+    from inferno_tpu_torch.core.system import System
+    from inferno_tpu_torch.ops import cuda_queueing
+    from inferno_tpu_torch.parallel import (
+        calculate_fleet,
+        fleet,
+        reset_fleet_state,
+        solve_fleet,
+        solve_tandem_fleet,
+    )
+
+    reset_fleet_state()
+    system = System(SystemSpec.from_dict(spec.to_dict()))
+    os.environ["INCREMENTAL_CYCLE"] = "0"
+    try:
+        calculate_fleet(system, backend="cuda")
+    finally:
+        del os.environ["INCREMENTAL_CYCLE"]
+    memo = fleet._solve_memo["last"]
+    entries = (("agg", solve_fleet, memo["plan"], memo["results"][0]),
+               ("tan", solve_tandem_fleet, memo["tandem"], memo["results"][1]))
+    for kind, entry, plan, want in entries:
+        n = len(fleet.bucket_slots(*((plan, None) if kind == "agg" else (None, plan))))
+        per_pass = (STATS_LAUNCHES_PER_BUCKET[kind] * n, BISECT_LAUNCHES_PER_BUCKET * n)
+        for m in (None, mesh):
+            size = 1 if m is None else m.size
+            cuda_queueing.LAUNCHES = 0
+            cuda_queueing.BISECT_LAUNCHES = 0
+            res, ms = _timed(lambda: entry(plan, mesh=m))
+            counts = (cuda_queueing.LAUNCHES, cuda_queueing.BISECT_LAUNCHES)
+            diff = _result_bit_diffs(res, want)
+            print(f"  21(b) {entry.__name__}({kind} plan, {plan.num_lanes} lanes, {n} buckets"
+                  f"{'' if m is None else f', mesh of {size}'}): {diff} lanes differ in a bit "
+                  f"from calculate_fleet(cuda)'s solve; launches stats_kernel {counts[0]}, "
+                  f"bisect_kernel {counts[1]} (expected {size} x {per_pass}); {ms:.1f} ms")
+            if diff:
+                raise AssertionError(f"21(b): {entry.__name__} differs from calculate_fleet")
+            if counts != (per_pass[0] * size, per_pass[1] * size):
+                raise AssertionError(f"21(b): {entry.__name__} launched {counts}, expected "
+                                     f"{size} x {per_pass}")
+    reset_fleet_state()
+
+
 def _phase21(smi):
     """21. the lane mesh on the card, the graft entry, the NCCL dry run."""
     import numpy as np
@@ -2924,7 +2997,10 @@ def _phase21(smi):
                                      f"{size} x {expected}")
     mesh4 = meshes[1][0]
 
-    # (b) six timesteps of the week through the prep, sharded and not
+    # (b) the public entries solve_fleet / solve_tandem_fleet
+    _phase21_entries(spec, mesh4)
+
+    # (c) six timesteps of the week through the prep, sharded and not
     system = System(spec)
     trace = diurnal(base_rates_from_system(system), 168, 3600.0, seed=0)
     rows = trace.rates[:: 168 // P21_WEEK_ROWS][:P21_WEEK_ROWS]
@@ -2933,16 +3009,16 @@ def _phase21(smi):
         reset_fleet_state()
         got[label], ms = _timed(lambda: calculate_fleet_batch(System(spec), rows,
                                                               backend="cuda", mesh=mesh))
-        print(f"  21(b) {label}: {P21_WEEK_ROWS} week rows in {ms:.1f} ms")
+        print(f"  21(c) {label}: {P21_WEEK_ROWS} week rows in {ms:.1f} ms")
     for field in ("choice", "replicas", "chips", "cost", "value"):
         a, b = getattr(got[meshes[1][1]], field), getattr(got["unsharded"], field)
         if not np.array_equal(a, b):
-            raise AssertionError(f"21(b): the sharded prep's {field} differs")
-    print(f"  21(b) the week prep over {P21_SHARDS} shards equals the unsharded one on "
+            raise AssertionError(f"21(c): the sharded prep's {field} differs")
+    print(f"  21(c) the week prep over {P21_SHARDS} shards equals the unsharded one on "
           f"{P21_WEEK_ROWS} rows (choice, replicas, chips, cost, value)")
     reset_fleet_state()
 
-    # (c) the graft entry on the card against its plain version
+    # (d) the graft entry on the card against its plain version
     fn, args = graft_entry.entry()
     cuda_queueing.LAUNCHES = 0
     cuda_queueing.BISECT_LAUNCHES = 0
@@ -2950,21 +3026,21 @@ def _phase21(smi):
     counts = (cuda_queueing.LAUNCHES, cuda_queueing.BISECT_LAUNCHES)
     plain = q.fleet_size(args[0], graft_entry.K_MAX, use_kernel=False)
     boundary = _entry_match(res, plain)
-    print(f"  21(c) graft_entry.entry(): 64 lanes at K={graft_entry.K_MAX} in {ms:.1f} ms, "
+    print(f"  21(d) graft_entry.entry(): 64 lanes at K={graft_entry.K_MAX} in {ms:.1f} ms, "
           f"launches {counts[0]} + {counts[1]}; equal to the plain version ({boundary} ±1 "
           f"boundary lanes)")
     if counts != (4, 2):
-        raise AssertionError(f"21(c): entry launched {counts}, expected (4, 2)")
+        raise AssertionError(f"21(d): entry launched {counts}, expected (4, 2)")
 
-    # (d) the dry run on NCCL, one rank a card
+    # (e) the dry run on NCCL, one rank a card
     report, ms = _timed(lambda: graft_entry.dryrun_multichip(count, timeout=300))
-    print(f"  21(d) dryrun_multichip({count}) on {report['backend']}: mesh (dp, tp) = "
+    print(f"  21(e) dryrun_multichip({count}) on {report['backend']}: mesh (dp, tp) = "
           f"({report['dp']}, {report['tp']}), losses {report['losses'][0]:.6f} -> "
           f"{report['losses'][-1]:.6f} (one device: {report['single_losses'][0]:.6f} -> "
           f"{report['single_losses'][-1]:.6f}), fleet and tandem lanes "
           f"{report['fleet_lanes']} / {report['tandem_lanes']}; {ms:.1f} ms")
     if report["backend"] != "nccl" or (count == 1 and report["losses"] != report["single_losses"]):
-        raise AssertionError("21(d): the (1, 1) step differs from the one-device step")
+        raise AssertionError("21(e): the (1, 1) step differs from the one-device step")
 
 
 def _entry_match(got, want):
@@ -2978,13 +3054,13 @@ def _entry_match(got, want):
     g = {k: v.cpu().numpy() for k, v in got._asdict().items()}
     w = {k: v.cpu().numpy() for k, v in want._asdict().items()}
     if not np.array_equal(g["feasible"], w["feasible"]):
-        raise AssertionError("21(c): feasibility differs")
+        raise AssertionError("21(d): feasibility differs")
     for name in ("rate_star", "lambda_star"):
         np.testing.assert_allclose(g[name], w[name], rtol=1e-4, err_msg=name)
     diff = g["num_replicas"].astype(np.int64) - w["num_replicas"].astype(np.int64)
     boundary = (np.abs(diff) == 1) & np.isclose(g["rate_star"], w["rate_star"], rtol=1e-4, atol=0)
     if not np.all((diff == 0) | boundary):
-        raise AssertionError("21(c): replicas differ off the ±1 boundary")
+        raise AssertionError("21(d): replicas differ off the ±1 boundary")
     keep = ~boundary
     np.testing.assert_allclose(g["cost"][keep], w["cost"][keep], rtol=1e-5)
     for name in ("itl", "ttft", "rho"):
@@ -3941,7 +4017,7 @@ def main() -> int:
     _phase22(smi, (launches, bisect_launches))
     _stamp("phase 22 done")
 
-    # 23. the shipped controller: prebuilt wheel, read-only install, 5k over sockets
+    # 23. the shipped controller: prebuilt wheel, read-only install, 2k over sockets
     _phase23(smi)
     _stamp("phase 23 done")
 

@@ -4,7 +4,14 @@ The analogue of the upstream project's tools/vllm-emulator/loadgen.py:38-131:
 Poisson or deterministic arrivals with a piecewise-constant rate
 schedule, driving fire-and-forget submissions.
 
-Port copy of `inferno_tpu/emulator/loadgen.py`, verbatim apart from its imports.
+Port of `inferno_tpu/emulator/loadgen.py`, verbatim apart from its imports
+and `LoadGenerator`'s window. The reference's generator ends its window at
+the first clock reading past the schedule's end: a thread that reads the
+clock late (a starved generator on a loaded host; at `time_scale` 0.01 a
+5 ms stall is half an emulated second) drops the arrivals still due inside
+the window and counts the stall into `elapsed`. Here the window ends on the
+schedule: every arrival due before its end is submitted, none after it,
+and `elapsed` is the schedule's length.
 """
 
 from __future__ import annotations
@@ -135,9 +142,10 @@ class LoadGenerator:
         self.schedule_clock = schedule_clock
         self.wall_per_unit = wall_per_unit
         self.wall_clock = wall_clock
-        # schedule seconds actually elapsed when the run finished (~ the
-        # schedule duration): the denominator for an unbiased realized
-        # rate — engine-side clocks include thread-startup idle
+        # schedule seconds the finished run covered: the schedule's length,
+        # over which exactly the `submitted` arrivals were due — the
+        # denominator for an unbiased realized rate (engine-side clocks
+        # include thread-startup idle)
         self.elapsed = 0.0
         self._thread: threading.Thread | None = None
 
@@ -151,6 +159,7 @@ class LoadGenerator:
 
     def _run(self) -> None:
         clock = self._clock()
+        end = self.rate.total_duration
         i = 0
         # Absolute-schedule pacing: arrival times are generated on the
         # schedule clock and slept-to, so per-sleep overshoot (timer
@@ -160,31 +169,24 @@ class LoadGenerator:
         # (gaps of ~1 ms vs ~1 ms overhead), which made the bench's
         # "measured p99 at the benched point" validate a materially
         # easier operating point than promised (VERDICT r5 §5).
+        # The window ends on the schedule too: the arrivals due before
+        # `end` are submitted (late ones at once, in order, when the
+        # thread was starved), the first one due at or after it is not.
         next_at = 0.0
         while True:
-            t = clock()
-            if t >= self.rate.total_duration:
-                self.elapsed = t
-                return
-            rate = self.rate.rate_at(t)
-            if rate <= 0:
-                next_at = max(next_at, t) + 0.01
-                time.sleep(0.01 * self.wall_per_unit)
-                continue
+            rate = self.rate.rate_at(next_at)
+            # an idle phase is stepped through in 10 ms schedule slices
             gap = (
-                float(self.rng.exponential(1.0 / rate)) if self.poisson else 1.0 / rate
+                0.01 if rate <= 0
+                else float(self.rng.exponential(1.0 / rate)) if self.poisson
+                else 1.0 / rate
             )
             next_at += gap
-            if self.schedule_clock is None:
-                delay = next_at - clock()
-                if delay > 0:
-                    time.sleep(delay)
-            else:
-                # a non-wall clock advances on its own cadence (e.g. the
-                # engine's step quanta): sleep in short wall slices and
-                # re-read until the schedule reaches the arrival time
-                while (remaining := next_at - clock()) > 0:
-                    time.sleep(min(remaining * self.wall_per_unit, 0.002))
+            if next_at >= end:
+                break
+            self._wait_until(clock, next_at)
+            if rate <= 0:
+                continue
             # round-robin across replicas (a crude load balancer)
             engine = self.engines[i % len(self.engines)]
             i += 1
@@ -199,6 +201,22 @@ class LoadGenerator:
             )
             engine.submit(inp, out)
             self.submitted += 1
+        # the run lasts the schedule: idle out its tail on the clock
+        self._wait_until(clock, end)
+        self.elapsed = end
+
+    def _wait_until(self, clock, at: float) -> None:
+        """Sleep until the schedule clock reads `at` (seconds)."""
+        if self.schedule_clock is None:
+            delay = at - clock()
+            if delay > 0:
+                time.sleep(delay)
+            return
+        # a non-wall clock advances on its own cadence (e.g. the engine's
+        # step quanta): sleep in short wall slices and re-read until the
+        # schedule reaches the arrival time
+        while (remaining := at - clock()) > 0:
+            time.sleep(min(remaining * self.wall_per_unit, 0.002))
 
     def start(self) -> None:
         self._thread = threading.Thread(target=self._run, daemon=True)

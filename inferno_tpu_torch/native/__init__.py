@@ -375,6 +375,7 @@ __all__ = [
     "available",
     "fleet_refold_native",
     "fleet_size_native",
+    "load_error",
     "tandem_refold_native",
     "tandem_size_native",
 ]

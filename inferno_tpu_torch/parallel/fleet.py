@@ -748,6 +748,58 @@ def _solve_all(
     return agg_out, tan_out
 
 
+def _solve_entry(
+    plan: FleetPlan | None,
+    tandem: TandemPlan | None,
+    mesh: FleetMesh | None,
+    n_iters: int,
+    backend: str,
+    device,
+) -> tuple[FleetResult | None, FleetResult | None]:
+    """`_solve_all` behind the public entries: `backend` "cuda" or "torch"
+    on `device` (None = the CUDA card, raising without one), split over
+    `mesh` where it has more than one device (no `SIZING_SHARDS`: the
+    reference's entries shard only over the mesh they are given)."""
+    if backend == "native":
+        raise ValueError(
+            "backend 'native' has no batched sizing program; use 'cuda' or 'torch' "
+            "(calculate_fleet(backend='native') sizes on the C++ solver)"
+        )
+    device = _check_backend(backend, device)
+    mesh = _resolve_mesh(mesh, False, backend, device, env=False)
+    return _solve_all(plan, tandem, device, n_iters, backend == "cuda", mesh)
+
+
+def solve_fleet(
+    plan: FleetPlan | None,
+    mesh: FleetMesh | None = None,
+    n_iters: int = DEFAULT_BISECT_ITERS,
+    backend: str = "cuda",
+    device: str | torch.device | None = None,
+) -> FleetResult:
+    """Run the batched sizing for the aggregated lanes of a `build_fleet`
+    plan, bucket by bucket, on `device`; optionally split lanes over a
+    `mesh`. `backend` "cuda" launches the kernels, "torch" runs their
+    plain versions (the reference's `use_pallas`). The result is the one
+    `calculate_fleet` computes for the same plan, bit for bit. (Tandem
+    lanes: see solve_tandem_fleet.)"""
+    out, _ = _solve_entry(plan, None, mesh, n_iters, backend, device)
+    return out if out is not None else _empty_result(0)
+
+
+def solve_tandem_fleet(
+    plan: TandemPlan | None,
+    mesh: FleetMesh | None = None,
+    n_iters: int = DEFAULT_BISECT_ITERS,
+    backend: str = "cuda",
+    device: str | torch.device | None = None,
+) -> FleetResult:
+    """Run the batched tandem sizing for the disaggregated lanes of a
+    `build_tandem_fleet` plan (see solve_fleet)."""
+    _, out = _solve_entry(None, plan, mesh, n_iters, backend, device)
+    return out if out is not None else _empty_result(0)
+
+
 # Solve memo: when both plans replay from the lane-set memo (identical
 # object => identical content) under the same backend and device, the
 # previous FleetResult is bit-identical too (the mesh is compared by

@@ -39,8 +39,10 @@ the single-replay trace, and no (scenario, member) pair ever collides.
 
 Port of `inferno_tpu/planner/montecarlo.py`, verbatim apart from its
 imports and the backend: `replay_montecarlo` takes `backend` ("cuda", the
-default, or "torch") and `device` (None = the CUDA card) in place of the
-reference's mesh.
+default, or "torch") and `device` (None = the CUDA card) beside the
+reference's `mesh` (a `parallel.mesh.FleetMesh`), which splits the prep's
+grid solve over its devices as the reference's does (`SIZING_SHARDS` does
+not apply there).
 """
 
 from __future__ import annotations
@@ -367,6 +369,7 @@ def replay_montecarlo(
     include_series: bool = False,
     per_seed: bool = False,
     keep_seeds=(),
+    mesh=None,
     device=None,
 ) -> dict:
     """Replay a `seeds`-member ensemble of one scenario family and fold
@@ -391,7 +394,7 @@ def replay_montecarlo(
     profile: dict[str, float] = {}
 
     t0 = time.perf_counter()
-    prep = prepare_fleet_batch(system, backend=backend, device=device)
+    prep = prepare_fleet_batch(system, mesh=mesh, backend=backend, device=device)
     profile["prepare_ms"] = round((time.perf_counter() - t0) * 1000.0, 1)
 
     base = base_rates_from_system(system)

@@ -343,16 +343,15 @@ def test_seed_axis_matches_reference():
     assert boundary <= rates.size // 100
 
 
-@pytest.mark.parametrize("scenario,capacity", [("flash_crowd", None),
-                                               ("diurnal", 0.6)])
-def test_montecarlo_report_matches_reference(scenario, capacity):
-    """The whole Monte Carlo document (envelopes, tail risk, per-seed
-    scalars) equals the reference's, on a fleet whose surfaces agree
-    cell for cell."""
+MC_CASES = [("flash_crowd", None), ("diurnal", 0.6)]
+
+
+def _mc_ref_spec(capacity):
+    """The 40-variant, two-shape fleet whose Monte Carlo surfaces agree
+    cell for cell between the packages, optionally with pool budgets at
+    `capacity` of its unlimited use and one quota."""
     from inferno_tpu.config.types import CapacitySpec as RefCapacitySpec
-    from inferno_tpu.planner.montecarlo import replay_montecarlo as ref_replay_mc
     from inferno_tpu.testing.fleet import fleet_capacity as ref_fleet_capacity
-    from inferno_tpu_torch.planner.montecarlo import replay_montecarlo
 
     ref_spec = ref_fleet_system_spec(40, shapes_per_variant=2, priority_classes=3,
                                      split_pools=True)
@@ -362,12 +361,71 @@ def test_montecarlo_report_matches_reference(scenario, capacity):
         ref_spec.capacity = RefCapacitySpec(
             chips={p: max(int(c * capacity), 1) for p, c in usage.items()},
             quotas={"gen1/r1": max(int(usage["gen1"] * 0.3), 1)})
-    args = (scenario, 24, 3600.0)
-    kw = dict(seeds=6, base_seed=2, per_seed=True, include_series=True)
-    port = replay_montecarlo(System(port_spec(ref_spec)), *args, **kw, **CPU)
-    ref = ref_replay_mc(RefSystem(ref_spec), *args, **kw, **REF)
-    for doc in (port, ref):
-        doc.pop("profile")
+    return ref_spec
+
+
+def _mc_doc(system, scenario, replay, **kw):
+    """One Monte Carlo document of the test fleet, without its profile."""
+    doc = replay(system, scenario, 24, 3600.0, seeds=6, base_seed=2, per_seed=True,
+                 include_series=True, **kw)
+    doc.pop("profile")
+    return doc
+
+
+@pytest.mark.parametrize("scenario,capacity", MC_CASES)
+def test_montecarlo_report_matches_reference(scenario, capacity):
+    """The whole Monte Carlo document (envelopes, tail risk, per-seed
+    scalars) equals the reference's, on a fleet whose surfaces agree
+    cell for cell."""
+    from inferno_tpu.planner.montecarlo import replay_montecarlo as ref_replay_mc
+    from inferno_tpu_torch.planner.montecarlo import replay_montecarlo
+
+    ref_spec = _mc_ref_spec(capacity)
+    port = _mc_doc(System(port_spec(ref_spec)), scenario, replay_montecarlo, **CPU)
+    ref = _mc_doc(RefSystem(ref_spec), scenario, ref_replay_mc, **REF)
+    assert port.pop("backend") == "torch" and ref.pop("backend") == "jax"
+    assert port == ref
+
+
+@pytest.mark.parametrize("scenario,capacity", MC_CASES)
+def test_montecarlo_mesh_equals_unsharded(scenario, capacity):
+    """`replay_montecarlo(mesh=)` splits the prep's grid solve over four
+    devices; the report is the unsharded one, bit for bit, and the prep
+    holds the mesh (SIZING_SHARDS does not apply to the prep)."""
+    from inferno_tpu_torch.parallel import fleet, fleet_mesh
+    from inferno_tpu_torch.planner.montecarlo import replay_montecarlo
+
+    spec = port_spec(_mc_ref_spec(capacity))
+    mesh = fleet_mesh(devices=["cpu"] * 4)
+    preps = []
+    real_init = fleet.FleetBatchPrep.__init__
+
+    def init(prep, *args, **kwargs):
+        real_init(prep, *args, **kwargs)
+        preps.append(prep)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(fleet.FleetBatchPrep, "__init__", init)
+        single = _mc_doc(System(spec), scenario, replay_montecarlo, **CPU)
+        reset_fleet_state()
+        sharded = _mc_doc(System(spec), scenario, replay_montecarlo, mesh=mesh, **CPU)
+    assert [p.mesh for p in preps] == [None, mesh]
+    assert sharded == single
+
+
+@pytest.mark.parametrize("scenario,capacity", MC_CASES)
+def test_montecarlo_sharded_report_matches_reference(scenario, capacity):
+    """The port's report over four devices equals the reference's over
+    four of its (host) devices: the whole document, as unsharded."""
+    from inferno_tpu.parallel.mesh import fleet_mesh as ref_fleet_mesh
+    from inferno_tpu.planner.montecarlo import replay_montecarlo as ref_replay_mc
+    from inferno_tpu_torch.parallel import fleet_mesh
+    from inferno_tpu_torch.planner.montecarlo import replay_montecarlo
+
+    ref_spec = _mc_ref_spec(capacity)
+    port = _mc_doc(System(port_spec(ref_spec)), scenario, replay_montecarlo,
+                   mesh=fleet_mesh(devices=["cpu"] * 4), **CPU)
+    ref = _mc_doc(RefSystem(ref_spec), scenario, ref_replay_mc, mesh=ref_fleet_mesh(4), **REF)
     assert port.pop("backend") == "torch" and ref.pop("backend") == "jax"
     assert port == ref
 
