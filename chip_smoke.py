@@ -1375,8 +1375,9 @@ def _phase12(seed, smi):
               + ", ".join(f"{k} {spans.get(k, 0.0):.1f}"
                           for k in ("collect", "analyze", "solve", "actuate"))
               + f"; counters dirty_lanes {c.get('dirty_lanes', 0)}, skipped_servers "
-              f"{c.get('skipped_servers', 0)}, jit_dispatches {c.get('jit_dispatches', 0)}, "
-              f"jit_compiles {c.get('jit_compiles', 0)}, solve_replayed_servers "
+              f"{c.get('skipped_servers', 0)}, dispatches {c.get('dispatches', 0)}, "
+              f"dispatch_ms {c.get('dispatch_ms', 0.0):.1f}, kernel_library_loads "
+              f"{c.get('kernel_library_loads', 0)}, solve_replayed_servers "
               f"{c.get('solve_replayed_servers', 0)}; scanned_servers "
               f"{fd.scanned_servers if fd is not None else 'full path'}; "
               f"launches stats_kernel {counts[0]}, bisect_kernel {counts[1]}; "

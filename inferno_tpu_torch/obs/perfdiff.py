@@ -31,9 +31,13 @@ The noise band reuses the bench's spread machinery: every ``*_ms_spread``
 metric's band. Exit codes: 0 clean, 2 regression (named metric on
 stderr), 1 usage/load error — ``make perf-gate`` branches on these.
 
-Port of `inferno_tpu/obs/perfdiff.py`, verbatim apart from its imports.
-It reads the port's cycle profiles (`obs/profiler.py`, the same
-``inferno.profile/v1`` schema) as well as the reference's bench files.
+Port of `inferno_tpu/obs/perfdiff.py`, verbatim apart from its imports
+and the profile documents' counters: it reads the port's cycle profiles
+(`obs/profiler.py`, the same ``inferno.profile/v1`` schema) as well as
+the reference's bench files. A port profile's solve dispatch is its
+``dispatch_ms`` counter, diffed like every ``*_ms`` counter; the
+reference's compile-vs-execute sum (``cycle_jit_ms``) has no port
+counterpart and is not derived from a profile.
 """
 
 from __future__ import annotations
@@ -113,18 +117,10 @@ def metrics_from_profile_cycles(cycles: list[dict]) -> dict[str, Metric]:
             v = _num(val)
             if v is not None and name.endswith("_ms"):
                 series.setdefault(name, []).append(v)
-    out = {
+    return {
         k: Metric(statistics.median(vs), max(vs) - min(vs))
         for k, vs in series.items()
     }
-    jit = [
-        (_num((c.get("counters") or {}).get("jit_compile_ms")) or 0.0)
-        + (_num((c.get("counters") or {}).get("jit_execute_ms")) or 0.0)
-        for c in cycles
-    ]
-    if any(jit):
-        out["cycle_jit_ms"] = Metric(statistics.median(jit), max(jit) - min(jit))
-    return out
 
 
 def metrics_from_bench_full(doc: dict) -> dict[str, Metric]:

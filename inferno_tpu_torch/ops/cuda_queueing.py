@@ -37,7 +37,11 @@ copy whose sources hash to it loads it as it is: `build()` returns at its
 exists check, before it needs nvcc or a writable directory.
 
 `LAUNCHES` and `BISECT_LAUNCHES` count the launches of each kernel (and
-nothing else), so a run can show that the sizing path went through them.
+nothing else), so a run can show that the sizing path went through them;
+the cycle profiler (`obs/profiler.py`) counts them too, per cycle, as
+`stats_kernel_launches` and `bisect_kernel_launches`. The library's first
+load in the process is the profiler's span `kernel_library_load` and
+bumps `kernel_library_loads`: the one build the port has.
 """
 
 from __future__ import annotations
@@ -55,6 +59,10 @@ from typing import NamedTuple
 import torch
 
 from inferno_tpu_torch.native import ensure_build_dir
+
+# cycle-profiler hooks (obs/profiler.py): thread-local no-ops unless a
+# profiler is active; observation only
+from inferno_tpu_torch.obs import profiler as _prof
 from inferno_tpu_torch.ops.queueing import (
     BISECT_METRICS,
     TAN_ITL,
@@ -152,22 +160,24 @@ def _load() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(build())
-            ptr, i32 = ctypes.c_void_p, ctypes.c_int
-            lib.inferno_stats_launch.argtypes = [ptr] * 6 + [i32, i32, ptr]
-            lib.inferno_stats_launch.restype = i32
-            for m in BISECT_METRICS:
-                launch = getattr(lib, f"inferno_bisect_launch_{m}")
-                launch.argtypes = [ptr] * 17 + [i32] * 4 + [ctypes.c_float, i32, i32, ptr]
-                launch.restype = i32
-                shape = getattr(lib, f"inferno_bisect_shape_{m}")
-                shape.argtypes = [i32, i32, ptr]
-                shape.restype = i32
-            lib.inferno_set_device.argtypes = [i32]
-            lib.inferno_set_device.restype = i32
-            lib.inferno_cuda_error_string.argtypes = [i32]
-            lib.inferno_cuda_error_string.restype = ctypes.c_char_p
-            _lib = lib
+            with _prof.span("kernel_library_load"):
+                lib = ctypes.CDLL(build())
+                ptr, i32 = ctypes.c_void_p, ctypes.c_int
+                lib.inferno_stats_launch.argtypes = [ptr] * 6 + [i32, i32, ptr]
+                lib.inferno_stats_launch.restype = i32
+                for m in BISECT_METRICS:
+                    launch = getattr(lib, f"inferno_bisect_launch_{m}")
+                    launch.argtypes = [ptr] * 17 + [i32] * 4 + [ctypes.c_float, i32, i32, ptr]
+                    launch.restype = i32
+                    shape = getattr(lib, f"inferno_bisect_shape_{m}")
+                    shape.argtypes = [i32, i32, ptr]
+                    shape.restype = i32
+                lib.inferno_set_device.argtypes = [i32]
+                lib.inferno_set_device.restype = i32
+                lib.inferno_cuda_error_string.argtypes = [i32]
+                lib.inferno_cuda_error_string.restype = ctypes.c_char_p
+                _lib = lib
+            _prof.count("kernel_library_loads")
         return _lib
 
 
@@ -235,6 +245,7 @@ def solve_stats(lam: torch.Tensor, grid: _Grid):
     )
     _raise_on(lib, rc, f"stats_kernel launch failed (P={p}, K={k})")
     LAUNCHES += 1
+    _prof.count("stats_kernel_launches")
     return out[0], out[1], out[2], out[3]
 
 
@@ -417,4 +428,5 @@ def bisect(case: BisectCase, n_iters: int, *, real_lanes: int | None = None,
     _raise_on(lib, rc, f"bisect_kernel launch failed (metric {case.metric}, P={p}, K={k}, "
                        f"depth {depth})")
     BISECT_LAUNCHES += 1
+    _prof.count("bisect_kernel_launches")
     return lam, ok

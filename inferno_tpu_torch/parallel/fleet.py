@@ -20,15 +20,15 @@ by default, and both paths dispatch through one function, `solve_slots`.
 host in f64, on no device; like the reference's, it never takes the
 incremental cycle, so every call is a full pass.
 
-The cycle profiler's counters (`obs/profiler.py`) keep the reference's
-names. `jit_dispatches` counts the dispatches of `solve_slots` (one per
-full pass or incremental cycle that solves anything); `jit_compiles` and
-`jit_compile_ms` count the first dispatch in the process of a launch
-signature (backend, device, and each bucket's kind, K, padded width and
-full-or-refold program), which on backend "cuda" includes building or
-loading the kernel library; `jit_execute_ms` the warm dispatches. The
-hooks only observe: decisions are bit-identical with the profiler on and
-off.
+The cycle profiler's spans (`obs/profiler.py`) time the layers of a
+pass: `calculate_fleet` around the whole call, `snapshot_update`,
+`plan_repack` and `dispatch` (`solve_slots`: the launches and the copy
+back) inside it, and `plan_fold` around each row chunk of the planner's
+`FleetBatchPrep.solve`. `dispatches` counts the dispatches of
+`solve_slots` (one per full pass or incremental cycle that solves
+anything). Nothing is compiled at dispatch: the kernel library's first
+load is its own span (`ops/cuda_queueing.py`). The hooks only observe:
+decisions are bit-identical with the profiler on and off.
 
 The planner's batched time-axis solve (`prepare_fleet_batch`,
 `calculate_fleet_batch`, `FleetBatchPrep`) is ported too: its prep runs
@@ -51,7 +51,6 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import time
 from typing import NamedTuple
 
 import numpy as np
@@ -239,12 +238,11 @@ def _memoized_plan(kind: str, key: tuple, build):
         _prof.count("plan_memo_hits")
         return cached[1]
     _prof.count("plan_memo_misses")
-    t0 = time.perf_counter()
-    plan = build()
     # "repack" attribution: the full lane-set rebuild the memo exists to
     # avoid — rows/columns/meta extraction on the snapshot path, the
     # per-lane Python walk on the legacy path
-    _prof.add_ms("plan_repack_ms", (time.perf_counter() - t0) * 1000.0)
+    with _prof.span("plan_repack"):
+        plan = build()
     _plan_memo[kind] = (key, plan)
     return plan
 
@@ -276,11 +274,10 @@ def _snapshot_plan(
     build_fleet and build_tandem_fleet)."""
     snap = _get_snapshot()
     if known_version is None:
-        t0 = time.perf_counter()
-        version = snap.update(system)
         # snapshot re-derivation: the O(servers) change-detection walk +
         # column refresh of changed servers (vs the O(1) memo replay above)
-        _prof.add_ms("snapshot_update_ms", (time.perf_counter() - t0) * 1000.0)
+        with _prof.span("snapshot_update"):
+            version = snap.update(system)
     else:
         version = known_version
     key = (version, None if only is None else frozenset(only))
@@ -654,10 +651,6 @@ def _solve_sharded(
     return packed_all
 
 
-# launch signatures dispatched so far in this process (see solve_slots)
-_compiled_sigs: set = set()
-
-
 def solve_slots(
     slots: list[BucketSlot], device: torch.device, n_iters: int, use_kernel: bool,
     mesh: FleetMesh | None = None,
@@ -674,41 +667,20 @@ def solve_slots(
     multiple of its size) are split over its devices instead
     (`_solve_sharded`), and the host array is the same."""
     mesh = _mesh_key(mesh)
-    # compile-vs-execute attribution: the first dispatch of a launch
-    # signature in the process is charged to jit_compile_ms (on backend
-    # "cuda" the very first one builds or loads the kernel library), every
-    # later one to jit_execute_ms. The seen-set is kept with no profiler
-    # active, so a profiler attached mid-process never counts a warm
-    # signature as a compile.
-    sig = (
-        use_kernel, n_iters, str(device),
-        None if mesh is None else tuple(str(d) for d in mesh.devices),
-        tuple((s.kind, s.k, s.width, s.cached is None) for s in slots),
-    )
-    first_compile = sig not in _compiled_sigs
-    t0 = time.perf_counter()
-    if mesh is None:
-        packed = torch.empty(
-            (8, sum(s.width for s in slots)), dtype=torch.float32, device=device
-        )
-        offset = 0
-        for slot in slots:
-            res = _solve_slot(slot, device, n_iters, use_kernel)
-            pack_result(res, out=packed[:, offset : offset + slot.width])
-            offset += slot.width
-        packed_all = packed.cpu().numpy()
-    else:
-        packed_all = _solve_sharded(slots, mesh, n_iters, use_kernel)
-    solve_ms = (time.perf_counter() - t0) * 1000.0
-    # marked seen only after a dispatch that returned: one that raised
-    # (a failed build, an interrupt) must leave the compile to its retry
-    _compiled_sigs.add(sig)
-    _prof.count("jit_dispatches")
-    if first_compile:
-        _prof.count("jit_compiles")
-        _prof.add_ms("jit_compile_ms", solve_ms)
-    else:
-        _prof.add_ms("jit_execute_ms", solve_ms)
+    with _prof.span("dispatch"):
+        if mesh is None:
+            packed = torch.empty(
+                (8, sum(s.width for s in slots)), dtype=torch.float32, device=device
+            )
+            offset = 0
+            for slot in slots:
+                res = _solve_slot(slot, device, n_iters, use_kernel)
+                pack_result(res, out=packed[:, offset : offset + slot.width])
+                offset += slot.width
+            packed_all = packed.cpu().numpy()
+        else:
+            packed_all = _solve_sharded(slots, mesh, n_iters, use_kernel)
+    _prof.count("dispatches")
     return packed_all
 
 
@@ -1204,6 +1176,18 @@ def calculate_fleet(
     or 1: none). The decisions are the same bits as without a mesh.
     Backend "native" ignores the mesh.
     """
+    with _prof.span("calculate_fleet", own=True):
+        return _calculate_fleet(
+            system, backend, device, only, lam_tolerance, max_age_cycles,
+            event_dirty, mesh, use_mesh,
+        )
+
+
+def _calculate_fleet(
+    system, backend, device, only, lam_tolerance, max_age_cycles, event_dirty,
+    mesh, use_mesh,
+) -> int:
+    """The body of `calculate_fleet`, inside its span."""
     device = _check_backend(backend, device)
     mesh = _resolve_mesh(mesh, use_mesh, backend, device)
 
@@ -1252,9 +1236,8 @@ def calculate_fleet(
     known = None
     if _snapshot_enabled():
         snap = _get_snapshot()
-        t0 = time.perf_counter()
-        known = snap.update(system)
-        _prof.add_ms("snapshot_update_ms", (time.perf_counter() - t0) * 1000.0)
+        with _prof.span("snapshot_update"):
+            known = snap.update(system)
     plan = build_fleet(system, only, _known_version=known)
     tandem = build_tandem_fleet(system, only, _known_version=known)
     system.candidates_calculated = True
@@ -1982,7 +1965,8 @@ class FleetBatchPrep:
             for t0 in range(0, n_rows, chunk):
                 r = flat[t0 : t0 + chunk]
                 views = {key: arr[t0 : t0 + len(r)] for key, arr in full.items()}
-                self._solve_chunk(r, views, needs)
+                with _prof.span("plan_fold"):
+                    self._solve_chunk(r, views, needs)
 
             def shaped(key):
                 arr = full.get(key)
@@ -2012,7 +1996,8 @@ class FleetBatchPrep:
                 view = buf[:rows]
                 view.fill(fills[key][1])
                 views[key] = view
-            lane_reps, zmask = self._solve_chunk(r, views, needs)
+            with _prof.span("plan_fold"):
+                lane_reps, zmask = self._solve_chunk(r, views, needs)
             consume(FleetBatchSlab(
                 row0=t0,
                 rates=r,

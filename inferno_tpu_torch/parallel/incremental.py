@@ -38,13 +38,14 @@ the same dispatch and bucketing rule as the full path, on backend "cuda"
 `bisect_kernel`) or "torch" (their plain versions). The reference never
 runs its Pallas kernel here; the port runs its kernels on this path as
 on the full one. The cycle profiler's counters keep the reference's
-names; `jit_*` are counted in `fleet.solve_slots` (see `parallel/fleet.py`).
+names; the spans `snapshot_update`, `incremental_scatter` and
+`incremental_writeback` time this cycle's layers, and `dispatch` its
+gathered solve (`fleet.solve_slots`, see `parallel/fleet.py`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-import time
 
 import numpy as np
 
@@ -313,12 +314,11 @@ def incremental_cycle(
     from inferno_tpu_torch.parallel import fleet as F
 
     snap = F._get_snapshot()
-    t0 = time.perf_counter()
-    if event_dirty is None:
-        snap.scan_update(system, lam_tolerance, max_age_cycles)
-    else:
-        snap.scan_event_update(system, event_dirty, lam_tolerance)
-    _prof.add_ms("snapshot_update_ms", (time.perf_counter() - t0) * 1000.0)
+    with _prof.span("snapshot_update"):
+        if event_dirty is None:
+            snap.scan_update(system, lam_tolerance, max_age_cycles)
+        else:
+            snap.scan_event_update(system, event_dirty, lam_tolerance)
 
     names = snap._names
     servers_list = list(system.servers.values())
@@ -433,157 +433,155 @@ def incremental_cycle(
         packed_all = F.solve_slots(
             slots, device, DEFAULT_BISECT_ITERS, backend == "cuda", mesh
         )
-        t0 = time.perf_counter()
-        for slot, res in F.iter_slot_results(slots, packed_all):
-            t = st.kinds[slot.kind]
-            for field in _RESULT_FIELDS:
-                getattr(t.res, field)[slot.idx] = getattr(res, field)
-            t.valid[slot.idx] = True
-            n_lanes_total += len(slot.idx)
-        _prof.add_ms("incremental_scatter_ms", (time.perf_counter() - t0) * 1000.0)
+        with _prof.span("incremental_scatter"):
+            for slot, res in F.iter_slot_results(slots, packed_all):
+                t = st.kinds[slot.kind]
+                for field in _RESULT_FIELDS:
+                    getattr(t.res, field)[slot.idx] = getattr(res, field)
+                t.valid[slot.idx] = True
+                n_lanes_total += len(slot.idx)
     _prof.count("dirty_lanes", n_lanes_total)
     _prof.count("refold_lanes", refold_lanes)
 
     # -- writeback for dirty servers: penalties, spot, per-server argmin ----
-    t0 = time.perf_counter()
-    spot_cols = None
-    if getattr(system, "spot", None):
-        from inferno_tpu_torch.spot.market import rank_columns
+    with _prof.span("incremental_writeback"):
+        spot_cols = None
+        if getattr(system, "spot", None):
+            from inferno_tpu_torch.spot.market import rank_columns
 
-        spot_cols = rank_columns(system, acc_names)
+            spot_cols = rank_columns(system, acc_names)
 
-    if len(wb_pos):
-        scan = snap._scan
-        inv = np.full(n_srv, -1, np.int64)
-        inv[wb_pos] = np.arange(len(wb_pos))
-        cw_rank = np.empty(len(wb_pos), np.int64)
-        cw_cost = np.empty(len(wb_pos), np.float64)
-        cw_reps = np.empty(len(wb_pos), np.int64)
-        for j, pos in enumerate(wb_pos.tolist()):
-            acc, cost, reps = scan.cur_vals[pos]
-            cw_rank[j] = acc_order.get(acc, -1) if acc else -1
-            cw_cost[j] = cost
-            cw_reps[j] = reps
+        if len(wb_pos):
+            scan = snap._scan
+            inv = np.full(n_srv, -1, np.int64)
+            inv[wb_pos] = np.arange(len(wb_pos))
+            cw_rank = np.empty(len(wb_pos), np.int64)
+            cw_cost = np.empty(len(wb_pos), np.float64)
+            cw_reps = np.empty(len(wb_pos), np.int64)
+            for j, pos in enumerate(wb_pos.tolist()):
+                acc, cost, reps = scan.cur_vals[pos]
+                cw_rank[j] = acc_order.get(acc, -1) if acc else -1
+                cw_cost[j] = cost
+                cw_reps[j] = reps
 
-        cat: list[tuple[np.ndarray, ...]] = []
-        for kind_id, kind_name in enumerate(_KIND_NAMES):
-            kt = snap.kind_table(kind_name)
-            t = st.kinds[kind_name]
-            rows = snap.rows_for_positions(kind_name, wb_pos)
-            if not len(rows):
-                continue
-            reps64 = t.res.num_replicas[rows].astype(np.int64)
-            cost64 = t.res.cost[rows].astype(np.float64)
-            rank_rows = kt.cols["acc_rank"][rows].astype(np.int64)
-            spot_rows = None
-            if spot_cols is not None:
-                from inferno_tpu_torch.spot.market import spot_split
+            cat: list[tuple[np.ndarray, ...]] = []
+            for kind_id, kind_name in enumerate(_KIND_NAMES):
+                kt = snap.kind_table(kind_name)
+                t = st.kinds[kind_name]
+                rows = snap.rows_for_positions(kind_name, wb_pos)
+                if not len(rows):
+                    continue
+                reps64 = t.res.num_replicas[rows].astype(np.int64)
+                cost64 = t.res.cost[rows].astype(np.float64)
+                rank_rows = kt.cols["acc_rank"][rows].astype(np.int64)
+                spot_rows = None
+                if spot_cols is not None:
+                    from inferno_tpu_torch.spot.market import spot_split
 
-                cols = snap.columns(kind_name, rows)
-                total = offered_load(
-                    cols["total_rate"], cols["target_tps"], cols["out_tokens"], np
+                    cols = snap.columns(kind_name, rows)
+                    total = offered_load(
+                        cols["total_rate"], cols["target_tps"], cols["out_tokens"], np
+                    )
+                    required = fold_replicas(
+                        total, t.res.rate_star[rows], np.int32(0), np
+                    )
+                    spot_k, disc, prem, trimmed = spot_split(
+                        reps64, required,
+                        cols["cost_per_replica"].astype(np.float64),
+                        spot_cols[0][rank_rows], spot_cols[1][rank_rows],
+                        spot_cols[2][rank_rows], spot_cols[3][rank_rows],
+                    )
+                    cost64 = cost64 - disc
+                    sp = t.ensure_spot(len(t.valid))
+                    sp[0][rows] = cost64
+                    sp[1][rows] = spot_k
+                    sp[2][rows] = disc
+                    sp[3][rows] = prem
+                    sp[4][rows] = trimmed
+                    spot_rows = (spot_k, prem)
+                    st.source.spot[kind_name] = t.spot
+                li = inv[kt.lane_server[rows]]
+                same = rank_rows == cw_rank[li]
+                ccost = cw_cost[li]
+                value = np.where(
+                    same & (reps64 == cw_reps[li]),
+                    0.0,
+                    np.where(
+                        same,
+                        cost64 - ccost,
+                        ACCEL_PENALTY_FACTOR * (ccost + cost64) + (cost64 - ccost),
+                    ),
                 )
-                required = fold_replicas(
-                    total, t.res.rate_star[rows], np.int32(0), np
-                )
-                spot_k, disc, prem, trimmed = spot_split(
-                    reps64, required,
-                    cols["cost_per_replica"].astype(np.float64),
-                    spot_cols[0][rank_rows], spot_cols[1][rank_rows],
-                    spot_cols[2][rank_rows], spot_cols[3][rank_rows],
-                )
-                cost64 = cost64 - disc
-                sp = t.ensure_spot(len(t.valid))
-                sp[0][rows] = cost64
-                sp[1][rows] = spot_k
-                sp[2][rows] = disc
-                sp[3][rows] = prem
-                sp[4][rows] = trimmed
-                spot_rows = (spot_k, prem)
-                st.source.spot[kind_name] = t.spot
-            li = inv[kt.lane_server[rows]]
-            same = rank_rows == cw_rank[li]
-            ccost = cw_cost[li]
-            value = np.where(
-                same & (reps64 == cw_reps[li]),
-                0.0,
-                np.where(
-                    same,
-                    cost64 - ccost,
-                    ACCEL_PENALTY_FACTOR * (ccost + cost64) + (cost64 - ccost),
-                ),
-            )
-            if spot_rows is not None:
-                value = value + spot_rows[1]
-            t.value[rows] = value
-            t.cost64[rows] = cost64
-            fe = t.res.feasible[rows]
-            if fe.any():
-                rf = rows[fe]
-                cat.append((
-                    kt.lane_server[rf], rank_rows[fe], value[fe], cost64[fe],
-                    t.res.num_replicas[rf].astype(np.int64),
-                    kt.cols["chips_per_replica"][rf].astype(np.int64),
-                    (spot_rows[0][fe] if spot_rows is not None
-                     else np.zeros(int(fe.sum()), np.int64)),
-                    np.full(int(fe.sum()), kind_id, np.int64), rf,
-                ))
+                if spot_rows is not None:
+                    value = value + spot_rows[1]
+                t.value[rows] = value
+                t.cost64[rows] = cost64
+                fe = t.res.feasible[rows]
+                if fe.any():
+                    rf = rows[fe]
+                    cat.append((
+                        kt.lane_server[rf], rank_rows[fe], value[fe], cost64[fe],
+                        t.res.num_replicas[rf].astype(np.int64),
+                        kt.cols["chips_per_replica"][rf].astype(np.int64),
+                        (spot_rows[0][fe] if spot_rows is not None
+                         else np.zeros(int(fe.sum()), np.int64)),
+                        np.full(int(fe.sum()), kind_id, np.int64), rf,
+                    ))
 
-        covered = np.zeros(n_srv, bool)
-        if cat:
-            (
-                sidx_a, rank_a, val_a, cost_a, reps_a, chips_a,
-                spot_a, kind_a, row_a,
-            ) = (np.concatenate(parts) for parts in zip(*cat))
-            order, s_sorted, starts, bounds, order2 = F.candidate_order(
-                sidx_a, val_a, cost_a, rank_a
-            )
-            kinds_sorted = kind_a[order2]
-            rows_sorted = row_a[order2]
-            firsts = order[starts]
-            seg_pos = s_sorted[starts]
-            covered[seg_pos] = True
-            st.choice[seg_pos] = rank_a[firsts]
-            st.replicas[seg_pos] = reps_a[firsts]
-            st.cost[seg_pos] = cost_a[firsts]
-            st.value[seg_pos] = val_a[firsts]
-            st.pref_rank[seg_pos] = rank_a[firsts]
-            st.pref_reps[seg_pos] = reps_a[firsts]
-            st.pref_spot[seg_pos] = spot_a[firsts]
-            st.pref_chips[seg_pos] = chips_a[firsts]
-            for a, b in zip(bounds[:-1], bounds[1:]):
-                first = order[a]
-                st.la[s_sorted[a]] = F.LaneAllocations(
-                    st.source, kinds_sorted[a:b], rows_sorted[a:b],
-                    (int(kind_a[first]), int(row_a[first])),
+            covered = np.zeros(n_srv, bool)
+            if cat:
+                (
+                    sidx_a, rank_a, val_a, cost_a, reps_a, chips_a,
+                    spot_a, kind_a, row_a,
+                ) = (np.concatenate(parts) for parts in zip(*cat))
+                order, s_sorted, starts, bounds, order2 = F.candidate_order(
+                    sidx_a, val_a, cost_a, rank_a
                 )
-        # dirty servers without a feasible lane: zero-load dict (built
-        # above) or genuinely empty — per-server columns from the dict
-        from inferno_tpu_torch.solver.greedy import _chips_per_replica, candidate_sort_key
+                kinds_sorted = kind_a[order2]
+                rows_sorted = row_a[order2]
+                firsts = order[starts]
+                seg_pos = s_sorted[starts]
+                covered[seg_pos] = True
+                st.choice[seg_pos] = rank_a[firsts]
+                st.replicas[seg_pos] = reps_a[firsts]
+                st.cost[seg_pos] = cost_a[firsts]
+                st.value[seg_pos] = val_a[firsts]
+                st.pref_rank[seg_pos] = rank_a[firsts]
+                st.pref_reps[seg_pos] = reps_a[firsts]
+                st.pref_spot[seg_pos] = spot_a[firsts]
+                st.pref_chips[seg_pos] = chips_a[firsts]
+                for a, b in zip(bounds[:-1], bounds[1:]):
+                    first = order[a]
+                    st.la[s_sorted[a]] = F.LaneAllocations(
+                        st.source, kinds_sorted[a:b], rows_sorted[a:b],
+                        (int(kind_a[first]), int(row_a[first])),
+                    )
+            # dirty servers without a feasible lane: zero-load dict (built
+            # above) or genuinely empty — per-server columns from the dict
+            from inferno_tpu_torch.solver.greedy import _chips_per_replica, candidate_sort_key
 
-        for pos in wb_pos[~covered[wb_pos]].tolist():
-            d = st.la[pos]
-            best = min(d.values(), key=candidate_sort_key) if d else None
-            if best is None or not best.accelerator:
-                st.choice[pos] = -1
-                st.replicas[pos] = 0
-                st.cost[pos] = 0.0
-                st.value[pos] = 0.0
-                st.pref_rank[pos] = -1
-                st.pref_reps[pos] = 0
-                st.pref_spot[pos] = 0
-                st.pref_chips[pos] = 0
-                continue
-            st.choice[pos] = acc_order.get(best.accelerator, -1)
-            st.replicas[pos] = best.num_replicas
-            st.cost[pos] = best.cost
-            st.value[pos] = best.value
-            st.pref_rank[pos] = st.choice[pos]
-            st.pref_reps[pos] = best.num_replicas
-            st.pref_spot[pos] = best.spot_replicas
-            pc = _chips_per_replica(system, names[pos], best)
-            st.pref_chips[pos] = pc[1] if pc is not None else -1
-    _prof.add_ms("incremental_writeback_ms", (time.perf_counter() - t0) * 1000.0)
+            for pos in wb_pos[~covered[wb_pos]].tolist():
+                d = st.la[pos]
+                best = min(d.values(), key=candidate_sort_key) if d else None
+                if best is None or not best.accelerator:
+                    st.choice[pos] = -1
+                    st.replicas[pos] = 0
+                    st.cost[pos] = 0.0
+                    st.value[pos] = 0.0
+                    st.pref_rank[pos] = -1
+                    st.pref_reps[pos] = 0
+                    st.pref_spot[pos] = 0
+                    st.pref_chips[pos] = 0
+                    continue
+                st.choice[pos] = acc_order.get(best.accelerator, -1)
+                st.replicas[pos] = best.num_replicas
+                st.cost[pos] = best.cost
+                st.value[pos] = best.value
+                st.pref_rank[pos] = st.choice[pos]
+                st.pref_reps[pos] = best.num_replicas
+                st.pref_spot[pos] = best.spot_replicas
+                pc = _chips_per_replica(system, names[pos], best)
+                st.pref_chips[pos] = pc[1] if pc is not None else -1
 
     # -- hand the cycle's results to the System -----------------------------
     if st.applied_system is system:

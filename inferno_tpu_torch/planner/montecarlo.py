@@ -42,7 +42,10 @@ imports and the backend: `replay_montecarlo` takes `backend` ("cuda", the
 default, or "torch") and `device` (None = the CUDA card) beside the
 reference's `mesh` (a `parallel.mesh.FleetMesh`), which splits the prep's
 grid solve over its devices as the reference's does (`SIZING_SHARDS` does
-not apply there).
+not apply there). The cycle profiler's span `plan_feed` times the envelope
+accumulator's fold of each slab, beside `plan_fold` (the slab's per-row
+fold and argmin, `parallel/fleet.py`); the report's `profile` counts both
+in its `solve_ms`.
 """
 
 from __future__ import annotations
@@ -51,6 +54,9 @@ import time
 
 import numpy as np
 
+# cycle-profiler hooks (obs/profiler.py): thread-local no-ops unless a
+# profiler is active; observation only
+from inferno_tpu_torch.obs import profiler as _prof
 from inferno_tpu_torch.parallel.fleet import FleetBatchPrep, prepare_fleet_batch
 from inferno_tpu_torch.planner.replay import zeroed_fill_step
 from inferno_tpu_torch.planner.scenarios import (
@@ -185,6 +191,10 @@ class _EnvelopeAccumulator:
         return self._zero_add
 
     def feed(self, slab) -> None:
+        with _prof.span("plan_feed"):
+            self._feed(slab)
+
+    def _feed(self, slab) -> None:
         r0 = self.base_row + slab.row0
         rows = slab.rows
         B = self.n_pools + self.n_quotas

@@ -6,8 +6,10 @@ upstream pkg/solver/optimizer.go:24-48) and manager
 singleton assignment: callers pass the `System` in and get a solution out.
 
 Port copy of `inferno_tpu/solver/optimizer.py`, verbatim apart from its
-imports. Callers size candidates with `parallel.calculate_fleet` first and
-pass `calculate=False`.
+imports and the cycle profiler's spans (`obs/profiler.py`): `solver_pools`
+around `allocate_by_pool`, `solver_solution` around `generate_solution`.
+Callers size candidates with `parallel.calculate_fleet` first and pass
+`calculate=False`.
 """
 
 from __future__ import annotations
@@ -18,6 +20,10 @@ import time
 from inferno_tpu_torch.config.types import AllocationData, OptimizerSpec
 from inferno_tpu_torch.core.allocation import AllocationDiff
 from inferno_tpu_torch.core.system import PoolUsage, System
+
+# cycle-profiler hooks (obs/profiler.py): thread-local no-ops unless a
+# profiler is active; observation only
+from inferno_tpu_torch.obs import profiler as _prof
 from inferno_tpu_torch.solver.solver import Solver
 
 
@@ -64,9 +70,12 @@ class Optimizer:
         t1 = time.perf_counter()
         self.solver.solve(system)
         self.solution_time_msec = (time.perf_counter() - t1) * 1000.0
-        usage = system.allocate_by_pool()
+        with _prof.span("solver_pools"):
+            usage = system.allocate_by_pool()
+        with _prof.span("solver_solution"):
+            solution = system.generate_solution()
         return OptimizationResult(
-            solution=system.generate_solution(),
+            solution=solution,
             diffs=self.solver.diff_allocation,
             pool_usage=usage,
             solution_time_msec=self.solution_time_msec,

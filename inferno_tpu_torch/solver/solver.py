@@ -5,7 +5,9 @@ current allocations, dispatch to unlimited or greedy mode, compute
 per-server orchestration diffs. Takes the `System` explicitly (no
 singletons).
 
-Port copy of `inferno_tpu/solver/solver.py`, verbatim apart from its imports.
+Port copy of `inferno_tpu/solver/solver.py`, verbatim apart from its
+imports and the cycle profiler's spans (`obs/profiler.py`): `solver_assign`
+around the assignment, `solver_diff` around the diffs.
 """
 
 from __future__ import annotations
@@ -13,6 +15,10 @@ from __future__ import annotations
 from inferno_tpu_torch.config.types import OptimizerSpec
 from inferno_tpu_torch.core.allocation import Allocation, AllocationDiff, allocation_diff
 from inferno_tpu_torch.core.system import System
+
+# cycle-profiler hooks (obs/profiler.py): thread-local no-ops unless a
+# profiler is active; observation only
+from inferno_tpu_torch.obs import profiler as _prof
 from inferno_tpu_torch.solver.greedy import solve_greedy
 from inferno_tpu_torch.solver.greedy_vec import solve_greedy_fleet
 
@@ -82,18 +88,20 @@ class Solver:
             name: server.cur_allocation for name, server in system.servers.items()
         }
 
-        if self.optimizer_spec.unlimited:
-            system.degradations = {}
-            solve_unlimited(system)
-        else:
-            # limited mode: the vectorized solver consumes the columnar
-            # candidate table when batched sizing attached one
-            # (system.fleet_candidates); systems sized scalar fall back
-            # to the scalar greedy inside — results are bit-identical
-            solve_greedy_fleet(system, self.optimizer_spec)
+        with _prof.span("solver_assign"):
+            if self.optimizer_spec.unlimited:
+                system.degradations = {}
+                solve_unlimited(system)
+            else:
+                # limited mode: the vectorized solver consumes the columnar
+                # candidate table when batched sizing attached one
+                # (system.fleet_candidates); systems sized scalar fall back
+                # to the scalar greedy inside — results are bit-identical
+                solve_greedy_fleet(system, self.optimizer_spec)
 
         self.diff_allocation = {}
-        for name, server in system.servers.items():
-            diff = allocation_diff(self.current_allocation.get(name), server.allocation)
-            if diff is not None:
-                self.diff_allocation[name] = diff
+        with _prof.span("solver_diff"):
+            for name, server in system.servers.items():
+                diff = allocation_diff(self.current_allocation.get(name), server.allocation)
+                if diff is not None:
+                    self.diff_allocation[name] = diff

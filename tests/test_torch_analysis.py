@@ -797,10 +797,11 @@ def test_port_head_is_clean_under_its_allowlist():
     assert elapsed < 30.0, f"analyzer took {elapsed:.1f}s (budget 30s)"
 
 
-# The committed allowlist may only SHRINK: the reference's 39 INF005
-# entries, re-pathed. Fixing a site deletes its line and LOWERS the pin —
+# The committed allowlist may only SHRINK: 34 of the reference's 39 INF005
+# entries, re-pathed (the five parallel/ timing sites went onto the cycle
+# profiler's span). Fixing a site deletes its line and LOWERS the pin —
 # never raise it to land new code (use a seam, or a justified noqa).
-ALLOWLIST_CEILING = 39
+ALLOWLIST_CEILING = 34
 
 
 def test_allowlist_only_shrinks():

@@ -148,7 +148,7 @@ def test_debug_routes_served_over_tls(tmp_path):
             "schema": PROFILE_SCHEMA,
             "cycle": {"wall_ms": 100.0 + i},
             "phases": {"solve": {"wall_ms": 10.0 + i, "cpu_ms": 9.0}},
-            "counters": {"jit_dispatches": 1},
+            "counters": {"dispatches": 1},
         })
     attainment = AttainmentTracker()
     attainment.observe("v:ns", predicted_ttft_ms=10.0, predicted_itl_ms=5.0,
