@@ -6,10 +6,11 @@
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
-2. build: compiles both kernels (ops/csrc/stats_kernel.cu, the stationary
-   solve, and ops/csrc/bisect_kernel.cu, the fused bisection, once per
-   metric) with nvcc, one process per object, all at once, into one
-   library in inferno_tpu_torch/ops/_build/;
+2. build: compiles the three kernels (ops/csrc/stats_kernel.cu, the
+   stationary solve, ops/csrc/bisect_kernel.cu, the fused bisection, once
+   per metric, and ops/csrc/plan_rows_kernel.cu, the planner's rows) with
+   nvcc, one process per object, all at once, into one library in
+   inferno_tpu_torch/ops/_build/;
 3. kernels against their plain torch versions on the card, on synthetic
    cases (P x K sweep over the register widths and a strided width,
    saturated rates, empty tails, caps and batches beyond the grid):
@@ -108,9 +109,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    week on backend "torch" on the card equal under ROADMAP's ±1 boundary
    rule; the prep's and the per-row solve's host ms, and the device's busy
    time in a profiled cold prep; (b) a 200-seed flash-crowd Monte Carlo of
-   a 10k one-shape fleet over 168 steps through replay_montecarlo(cuda):
-   three kept members bit-identical to their serial calculate_fleet_batch,
-   their envelope inputs equal to aggregate_replay, and an 8-seed
+   a 10k one-shape fleet over 168 steps through replay_montecarlo(cuda),
+   its rows on the card (plan_rows_kernel launches counted: one a chunk,
+   and one more if the zero-load table was built): three kept members
+   bit-identical to their serial replay on the numpy path of a prep of
+   their own (`rows_on_card` False), their envelope inputs equal to
+   aggregate_replay of that replay, and an 8-seed
    sub-ensemble at chunk_steps=7 identical to the default chunking, and
    with mesh=fleet_mesh(devices=["cuda:0"] * 4) identical to unsharded,
    its prep launching each kernel exactly 4x the unsharded prep's; (c)
@@ -118,7 +122,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    spot tier): pre-positioning strictly cuts violation-seconds at a cost
    overhead of at most 10%, and the cuda and torch reports (single storm
    and a 50-seed ensemble) are equal, or differ only through ±1 boundary
-   cells of the placements;
+   cells of the placements; (d) plan_rows_kernel at the flash-crowd
+   cell's chunk shape (155 rows of a 10k two-shape fleet, zero-load
+   servers among them): every slab output, the accumulator's bucket
+   demand and its cost sums bit for bit against the numpy path of the same
+   prep, one launch a chunk; the launch's device time (the cost and the
+   demand, as the Monte Carlo planner asks) beside its byte bound, and
+   the whole chunk on both paths on the host clock;
 15. the flight recorder: the port's Reconciler (backend auto, cuda) over
    phase 12's 5,000-variant cluster records three cycles (cold, 1% λ,
    limited at 80%) into a temporary directory; read_artifact loads all
@@ -236,9 +246,11 @@ Phases, in order; any failure raises and the script exits non-zero:
 The card's name and power limit (nvidia-smi) are printed first and again
 before the kernels line.
 
-It prints a JSON line describing each kernel (its `launches`, times and
-errors are phase 4's main-path pass; phase 12 prints its own window's
-launches), then, as its last line,
+It prints a JSON line describing each kernel (the sizing kernels'
+`launches`, times and errors are phase 4's main-path pass, phase 12
+printing its own window's launches; plan_rows_kernel's launches are
+phase 14(b)'s 200-seed ensemble, its times and errors phase 14(d)'s
+chunk), then, as its last line,
 {"ok": true, "device": {...}}. It exits non-zero, printing no result,
 without a CUDA device or outside a checkout of the repo. `--seed` seeds
 phase 12's loads (default 0).
@@ -1549,7 +1561,8 @@ def _phase13():
 
 # phase 14: the planner on the card. (a) the reference's planner bench
 # (bench.py:2115) on the 10k edge fleet; (b) its Monte Carlo bench
-# (bench.py:2251); (c) its storm bench (bench.py:761)
+# (bench.py:2251); (c) its storm bench (bench.py:761); (d) the planner's
+# row kernel at the flash-crowd cell's chunk: 2,000,000 // 12,858 lanes
 PLANNER_VARIANTS = 10000
 PLANNER_STEPS = 168
 PLANNER_PARITY_STEPS = 6
@@ -1559,6 +1572,7 @@ MC_KEEP = (0, 99, 199)
 MC_SUB_SEEDS = 8
 MC_SUB_CHUNK = 7
 MC_SUB_SHARDS = 4
+PLAN_ROWS = 155
 STORM_VARIANTS = 200
 STORM_STEPS = 48
 STORM_STEP_S = 600.0
@@ -1708,7 +1722,8 @@ def _phase14b():
 
     from inferno_tpu_torch.core.system import System
     from inferno_tpu_torch.ops import cuda_queueing
-    from inferno_tpu_torch.parallel import calculate_fleet_batch, fleet_mesh, reset_fleet_state
+    from inferno_tpu_torch.parallel import fleet_mesh, prepare_fleet_batch, reset_fleet_state
+    from inferno_tpu_torch.parallel.fleet import _batch_chunk_steps
     from inferno_tpu_torch.planner.montecarlo import replay_montecarlo
     from inferno_tpu_torch.planner.replay import aggregate_replay
     from inferno_tpu_torch.planner.scenarios import (
@@ -1724,17 +1739,33 @@ def _phase14b():
     reset_fleet_state()
     system = System(fleet_system_spec(n, shapes_per_variant=1))
     keep = tuple(k for k in MC_KEEP if k < seeds)
+    cuda_queueing.PLAN_ROWS_LAUNCHES = 0
     mc, ms = _timed(lambda: replay_montecarlo(
         system, "flash_crowd", steps, 3600.0, seeds=seeds, backend="cuda",
         per_seed=True, keep_seeds=keep))
+    plan_launches = cuda_queueing.PLAN_ROWS_LAUNCHES
     prof = mc["profile"]
     print(f"  ensemble {ms:.1f} ms, {1e3 * seeds / ms:.1f} seeds/s; profile (ms) "
           + ", ".join(f"{k} {v}" for k, v in prof.items() if isinstance(v, (int, float))))
+    # the serial witness: the numpy rows of a prep of its own, so the card's
+    # rows are held to a result the kernel took no part in
+    witness = prepare_fleet_batch(system, backend="cuda")
+    if not witness.rows_on_card:
+        raise AssertionError("14(b): a cuda prep without a spot tier keeps its rows on the host")
+    witness.rows_on_card = False
+    chunks = seeds * -(-steps // _batch_chunk_steps(None, witness.n_lanes))
+    print(f"  plan_rows_kernel launches {plan_launches}: {chunks} chunks, binding rows "
+          f"{mc['binding_rows']}")
+    # one launch a chunk, one more if a slab met the zero-load table before
+    # it was built, and one a binding flush
+    if not chunks <= plan_launches <= (chunks + 1 if not mc["binding_rows"] else math.inf):
+        raise AssertionError(f"14(b): plan_rows_kernel launched {plan_launches} times for "
+                             f"{chunks} chunks")
     base = base_rates_from_system(system)
     members = ensemble_seeds("flash_crowd", 0, seeds)
     for k in keep:
         trace = GENERATORS["flash_crowd"](base, steps, 3600.0, seed=members[k])
-        res = calculate_fleet_batch(system, trace.rates, backend="cuda")
+        res = witness.solve(trace.rates)
         if not (np.array_equal(mc["_kept"][k]["choice"], res.choice)
                 and np.array_equal(mc["_kept"][k]["replicas"], res.replicas)):
             raise AssertionError(f"14(b): member {k} differs from its serial replay")
@@ -1748,7 +1779,7 @@ def _phase14b():
                 or mc["per_seed"]["cost_total_usd"][k] != serial["cost"]["total_usd"]):
             raise AssertionError(f"14(b): member {k} violation-seconds or cost")
         print(f"  member {k} (seed {members[k]}): choice and replicas bit-identical to its "
-              f"serial calculate_fleet_batch; envelope inputs equal to aggregate_replay "
+              f"serial replay on the numpy rows; envelope inputs equal to aggregate_replay "
               f"(total ${serial['cost']['total_usd']:.2f})")
     sub, launches = {}, {}
     mesh = fleet_mesh(devices=["cuda:0"] * MC_SUB_SHARDS)
@@ -1777,6 +1808,118 @@ def _phase14b():
         raise AssertionError(f"14(b): the sharded prep launched {launches['sharded']}, expected "
                              f"{MC_SUB_SHARDS} x {base}")
     reset_fleet_state()
+    return plan_launches
+
+
+def _phase14d(smi):
+    """14(d). plan_rows_kernel against the numpy path of the same prep at
+    the flash-crowd cell's chunk shape; its time beside its bound. Returns
+    the kernel's record for the kernels line."""
+    import numpy as np
+    import torch
+
+    from inferno_tpu_torch.config.defaults import ACCEL_PENALTY_FACTOR
+    from inferno_tpu_torch.core.system import System
+    from inferno_tpu_torch.ops import cuda_queueing
+    from inferno_tpu_torch.parallel import prepare_fleet_batch, reset_fleet_state
+    from inferno_tpu_torch.parallel.fleet import BATCH_OUTPUTS
+    from inferno_tpu_torch.planner.montecarlo import _EnvelopeAccumulator
+    from inferno_tpu_torch.planner.scenarios import GENERATORS, base_rates_from_system
+    from inferno_tpu_torch.testing.fleet import fleet_system_spec
+
+    reset_fleet_state()
+    system = System(fleet_system_spec(MC_VARIANTS, shapes_per_variant=2))
+    prep = prepare_fleet_batch(system, backend="cuda")
+    rates = GENERATORS["flash_crowd"](base_rates_from_system(system), PLAN_ROWS, 3600.0,
+                                      seed=1).rates
+    zero_cells = int((rates == 0).sum())
+    print(f"14(d). plan_rows_kernel: {PLAN_ROWS} rows x {prep.n_servers} variants, "
+          f"{prep.n_lanes} lanes, {zero_cells} zero-rate cells")
+    if prep.all_seg1 or not zero_cells:
+        raise AssertionError("14(d): the slab has no multi-lane segment or no zero-rate cell")
+
+    # an accumulator for each path (each picks its demand path when made)
+    accs = {}
+    for on_card in (False, True):
+        prep.rows_on_card = on_card
+        accs[on_card] = _EnvelopeAccumulator(prep, system, PLAN_ROWS, chunk_steps=PLAN_ROWS)
+
+    def chunk(on_card, keep=None):
+        """One chunk through the accumulator, as replay_montecarlo feeds it:
+        (its demand, cost sums and binding rows); `keep` gets a copy of
+        every slab output."""
+        prep.rows_on_card = on_card
+        acc = accs[on_card]
+
+        def consume(slab):
+            if keep is not None:
+                keep.update((f, getattr(slab, f).copy()) for f in BATCH_OUTPUTS)
+            acc.feed(slab)
+
+        prep.solve(rates, chunk_steps=PLAN_ROWS, consume=consume,
+                   needs=BATCH_OUTPUTS if keep is not None else acc.needs,
+                   buckets=acc.ledger)
+        return (np.hstack([acc.pool_demand, acc.quota_demand]), acc.cost_usd_hr.copy(),
+                list(acc.binding_rows))
+
+    chunk(True)  # the card's columns and the zero-load table
+    card_out, host_out = {}, {}
+    cuda_queueing.PLAN_ROWS_LAUNCHES = 0
+    card = chunk(True, card_out)
+    launches = cuda_queueing.PLAN_ROWS_LAUNCHES
+    host = chunk(False, host_out)
+    prep.rows_on_card = True
+    if launches != 1:
+        raise AssertionError(f"14(d): one chunk launched plan_rows_kernel {launches} times")
+    max_abs = 0.0
+    pairs = [(f, card_out[f], host_out[f]) for f in BATCH_OUTPUTS]
+    pairs += [("demand", card[0], host[0]), ("cost sums", card[1], host[1])]
+    for name, got, want in pairs:
+        if got.shape != want.shape or got.tobytes() != want.tobytes():
+            raise AssertionError(f"14(d): {name} differs from the numpy path in a bit")
+        diff = np.abs(got.astype(np.float64) - want.astype(np.float64))
+        max_abs = max(max_abs, float(np.nanmax(diff)) if diff.size else 0.0)
+    if card[2] != host[2]:
+        raise AssertionError("14(d): the binding rows differ from the numpy path")
+    print(f"  every slab output ({', '.join(BATCH_OUTPUTS)}), the bucket demand "
+          f"({card[0].shape[1]} columns, {int(card[0].sum())} chips) and the cost sums "
+          "bit-identical to the numpy path of the same prep")
+
+    # the launch as the Monte Carlo planner makes it: the cost and the demand
+    rows = prep._card_rows
+    dev = rows.device
+    slab = torch.from_numpy(rates).to(dev)
+    out = {"cost": torch.empty(rates.shape, dtype=torch.float32, device=dev)}
+    buckets = rows.bucket_map(accs[True].ledger)
+    demand = torch.empty((PLAN_ROWS, buckets.n), dtype=torch.int64, device=dev)
+
+    def launch():
+        cuda_queueing.plan_rows(slab, rows.lanes, ACCEL_PENALTY_FACTOR, rows.zero, out,
+                                buckets, demand)
+
+    k_ms, k_enq = _device_ms(launch, 100)
+    nbytes = (slab.numel() * (8 + 4) + demand.numel() * 8
+              + sum(t.numel() * t.element_size() for t in rows.lanes)
+              + sum(t.numel() * t.element_size() for t in buckets[:3]))
+    b_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+
+    def wall_ms(on_card):
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            chunk(on_card)
+            times.append((time.perf_counter() - t0) * 1e3)
+        prep.rows_on_card = True
+        return statistics.median(times)
+
+    card_ms, host_ms = wall_ms(True), wall_ms(False)
+    print(f"  plan_rows_kernel {k_ms * 1e3:.2f} us a launch (host enqueue of the timed runs "
+          f"{k_enq:.1f} ms), bound {b_ms * 1e3:.2f} us ({nbytes} bytes over "
+          f"{PEAK_BYTES_PER_S / 1e12:.2f} TB/s); the whole chunk through the accumulator "
+          f"(host clock, median of 5): card {card_ms:.2f} ms, numpy {host_ms:.2f} ms; on {smi}")
+    reset_fleet_state()
+    return dict(launches=launches, max_abs_err=max_abs, ms=k_ms, plain_ms=host_ms,
+                bound_ms=b_ms, bound_by="bytes")
 
 
 def _phase14c():
@@ -3989,8 +4132,9 @@ def main() -> int:
     # 14. the planner; 15. the flight recorder and trace replay; 16. the
     # fleet twin (replaying 15's artifact); 17. a closed emulated loop
     _phase14a(smi)
-    _phase14b()
+    plan_launches = _phase14b()
     _phase14c()
+    plan_rows = _phase14d(smi)
     _stamp("phase 14 done")
     with tempfile.TemporaryDirectory() as tmp:
         _phase15(args.seed, smi, tmp)
@@ -4049,6 +4193,19 @@ def main() -> int:
             "plain_ms": top_bisect["plain_ms"],
             "bound_ms": top_bisect["bound_ms"],
             "bound_by": top_bisect["bound_by"],
+            "library_ms": None,
+        },
+        {
+            "name": "plan_rows_kernel",
+            "route": "cuda",
+            "source": "inferno_tpu_torch/ops/csrc/plan_rows_kernel.cu",
+            "replaces": "inferno_tpu/parallel/fleet.py::FleetBatchPrep._solve_chunk",
+            "launches": plan_launches,
+            "max_abs_err": plan_rows["max_abs_err"],
+            "ms": plan_rows["ms"],
+            "plain_ms": plan_rows["plain_ms"],
+            "bound_ms": plan_rows["bound_ms"],
+            "bound_by": plan_rows["bound_by"],
             "library_ms": None,
         },
     ]}))

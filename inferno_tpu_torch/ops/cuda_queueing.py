@@ -1,4 +1,4 @@
-"""The sizing kernels on the GPU: build, bind and launch.
+"""The hand-written kernels on the GPU: build, bind and launch.
 
 Port of `inferno_tpu/ops/pallas_queueing.py`. Two hand-written kernels
 (sm_90a) share the stationary solve of `csrc/lane_solve.cuh`:
@@ -17,12 +17,20 @@ Port of `inferno_tpu/ops/pallas_queueing.py`. Two hand-written kernels
   stops a lane's warp or block once all its lanes reach a fixed point;
   every schedule gives the same bits.
 
+A third kernel serves the capacity planner, not the sizing:
+`plan_rows(rates, lanes, ...)` launches `csrc/plan_rows_kernel.cu` over
+a [rows, S] slab of rates, the per-row replica fold, transition
+penalties, segment argmin, zero-load overlay and bucket chip demand of
+`parallel.fleet.FleetBatchPrep`, bit for bit its numpy path (which is
+its plain version: there is no torch one, and a CPU tensor raises).
+
 On a CUDA tensor each wrapper launches its kernel on the current stream,
 and raises on anything the kernel does not take or a launch CUDA refuses.
-On a CPU tensor it calls the plain torch version.
+On a CPU tensor the two sizing wrappers call their plain torch versions.
 
 The kernels are compiled with nvcc (one process per object, all started
-together: stats_kernel.cu once, bisect_kernel.cu once per metric) and
+together: stats_kernel.cu once, bisect_kernel.cu once per metric,
+plan_rows_kernel.cu once) and
 linked into one shared library with a plain C interface,
 loaded with ctypes at the first launch (never at import: this module
 imports without nvcc or CUDA). Like the reference's native build
@@ -36,10 +44,11 @@ that name (`tools/prebuild.py`, the image's build step), and an installed
 copy whose sources hash to it loads it as it is: `build()` returns at its
 exists check, before it needs nvcc or a writable directory.
 
-`LAUNCHES` and `BISECT_LAUNCHES` count the launches of each kernel (and
-nothing else), so a run can show that the sizing path went through them;
-the cycle profiler (`obs/profiler.py`) counts them too, per cycle, as
-`stats_kernel_launches` and `bisect_kernel_launches`. The library's first
+`LAUNCHES`, `BISECT_LAUNCHES` and `PLAN_ROWS_LAUNCHES` count the launches
+of each kernel (and nothing else), so a run can show that its path went
+through them; the cycle profiler (`obs/profiler.py`) counts them too, per
+cycle, as `stats_kernel_launches`, `bisect_kernel_launches` and
+`plan_rows_kernel_launches`. The library's first
 load in the process is the profiler's span `kernel_library_load` and
 bumps `kernel_library_loads`: the one build the port has.
 """
@@ -78,8 +87,10 @@ _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _OBJECTS = (
     ("stats_kernel.cu", ()),
     *(("bisect_kernel.cu", (f"-DINFERNO_BISECT_METRIC={m}",)) for m in BISECT_METRICS),
+    ("plan_rows_kernel.cu", ()),
 )
-_SOURCES = ("stats_kernel.cu", "bisect_kernel.cu", "lane_solve.cuh", "fold_tail.cuh")
+_SOURCES = ("stats_kernel.cu", "bisect_kernel.cu", "lane_solve.cuh", "fold_tail.cuh",
+            "plan_rows_kernel.cu")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
@@ -91,6 +102,7 @@ _REGISTER_WIDTHS = (128, 512, 2048)
 
 LAUNCHES = 0  # stats_kernel launches since import (or the caller's reset)
 BISECT_LAUNCHES = 0  # bisect_kernel launches since import (or the caller's reset)
+PLAN_ROWS_LAUNCHES = 0  # plan_rows_kernel launches since import (or the caller's reset)
 BUILD_LOG = ""  # nvcc's output of the build this process made ("" if it loaded one)
 
 _lock = threading.Lock()
@@ -172,6 +184,11 @@ def _load() -> ctypes.CDLL:
                     shape = getattr(lib, f"inferno_bisect_shape_{m}")
                     shape.argtypes = [i32, i32, ptr]
                     shape.restype = i32
+                lib.inferno_plan_rows_launch.argtypes = (
+                    [ptr, i32, i32] + [ptr] * 12 + [ctypes.c_double] + [ptr] * 8
+                    + [i32, i32] + [ptr] * 8
+                )
+                lib.inferno_plan_rows_launch.restype = i32
                 lib.inferno_set_device.argtypes = [i32]
                 lib.inferno_set_device.restype = i32
                 lib.inferno_cuda_error_string.argtypes = [i32]
@@ -430,3 +447,141 @@ def bisect(case: BisectCase, n_iters: int, *, real_lanes: int | None = None,
     BISECT_LAUNCHES += 1
     _prof.count("bisect_kernel_launches")
     return lam, ok
+
+
+class PlanLanes(NamedTuple):
+    """A prepared planner fleet's columns on the card, for `plan_rows`:
+    per server, the lanes it owns (`lane_lo`, lanes sorted by server) and
+    its zero-load flags (1: has load, 2: no output tokens); per lane, the
+    replica fold's, the cost's and the transition penalty's inputs."""
+
+    lane_lo: torch.Tensor  # int32[S + 1]
+    flags: torch.Tensor  # uint8[S]
+    rate_star: torch.Tensor  # f32[L]
+    tps: torch.Tensor  # f32[L]
+    out_tokens: torch.Tensor  # f32[L]
+    min_reps: torch.Tensor  # int32[L]
+    cpr: torch.Tensor  # f32[L]: cost a replica
+    same: torch.Tensor  # uint8[L]: the lane's shape is the server's current one
+    cur_reps: torch.Tensor  # int64[L]
+    cur_cost: torch.Tensor  # f64[L]
+    rank: torch.Tensor  # int32[L]
+    chips: torch.Tensor  # int64[L]: chips a replica
+
+
+class PlanZero(NamedTuple):
+    """The zero-load table on the card, per server."""
+
+    choice: torch.Tensor  # int32[S]
+    replicas: torch.Tensor  # int32[S]
+    chips: torch.Tensor  # int64[S]
+    cost: torch.Tensor  # f32[S]
+    value: torch.Tensor  # f64[S]
+
+
+class PlanBuckets(NamedTuple):
+    """A capacity ledger's bucket map on the card: rank -> pool column and
+    rank -> quota columns (-1: none), `n` columns in all."""
+
+    pid: torch.Tensor  # int32[ranks]
+    q1: torch.Tensor  # int32[ranks]
+    q2: torch.Tensor  # int32[ranks]
+    n_pools: int
+    n: int
+
+
+# the outputs plan_rows can write, [rows, S] each
+PLAN_ROW_DTYPES = {
+    "choice": torch.int32, "replicas": torch.int32, "chips": torch.int64,
+    "cost": torch.float32, "value": torch.float64,
+}
+
+
+def _check_columns(kernel: str, cols: tuple, dtypes: dict, sizes: dict, device) -> None:
+    for name, t in cols._asdict().items():
+        if not isinstance(t, torch.Tensor):
+            continue
+        dtype, size = dtypes[name], sizes[name]
+        if t.dtype != dtype or t.shape != (size,) or not t.is_contiguous():
+            raise ValueError(f"{kernel}: {name} must be a contiguous {dtype}[{size}] tensor, "
+                             f"got {t.dtype} {tuple(t.shape)}")
+        if t.device != device:
+            raise ValueError(f"{kernel}: {name} is on {t.device}, the rates on {device}")
+
+
+def plan_rows(rates: torch.Tensor, lanes: PlanLanes, penalty: float, zero: PlanZero | None,
+              out: dict, buckets: PlanBuckets | None = None,
+              demand: torch.Tensor | None = None, need_zero: torch.Tensor | None = None) -> None:
+    """One launch of `csrc/plan_rows_kernel.cu` over a [rows, S] f64 slab of
+    rates (req/min) on the card: each server's winning lane (the replica
+    fold, cost, transition penalty at `penalty` and (value, cost, rank)
+    argmin of `FleetBatchPrep`'s numpy path, bit for bit) into the [rows, S]
+    tensors of `out` (any of `PLAN_ROW_DTYPES`), the zero-load table's
+    columns where a server with load has rate 0 or no output tokens,
+    and, with `buckets`, each row's winner chips summed into its columns
+    of `demand` (int64[rows, buckets.n]). `zero` None: the table is not
+    built yet; the kernel then sets `need_zero` (int32[1]) where it met
+    such a cell. Launches on the current stream; raises on anything the
+    kernel does not take. No CPU version: the host path is the numpy
+    fold of `FleetBatchPrep`."""
+    global PLAN_ROWS_LAUNCHES
+    kernel = "plan_rows_kernel"
+    device = rates.device
+    if device.type != "cuda":
+        raise ValueError(f"{kernel}: rates are on {device}; the host's rows are "
+                         "FleetBatchPrep's numpy path")
+    if rates.dtype != torch.float64 or rates.dim() != 2 or not rates.is_contiguous():
+        raise ValueError(f"{kernel}: rates must be a contiguous f64[rows, S] tensor, got "
+                         f"{rates.dtype} {tuple(rates.shape)}")
+    rows, s = rates.shape
+    n_lanes = lanes.rate_star.shape[0]
+    lane_dtypes = {
+        "lane_lo": torch.int32, "flags": torch.uint8, "rate_star": torch.float32,
+        "tps": torch.float32, "out_tokens": torch.float32, "min_reps": torch.int32,
+        "cpr": torch.float32, "same": torch.uint8, "cur_reps": torch.int64,
+        "cur_cost": torch.float64, "rank": torch.int32, "chips": torch.int64,
+    }
+    lane_sizes = dict.fromkeys(lane_dtypes, n_lanes)
+    lane_sizes.update(lane_lo=s + 1, flags=s)
+    _check_columns(kernel, lanes, lane_dtypes, lane_sizes, device)
+    if zero is not None:
+        _check_columns(kernel, zero, {k: PLAN_ROW_DTYPES[k] for k in PlanZero._fields},
+                       dict.fromkeys(PlanZero._fields, s), device)
+    for name, t in out.items():
+        if name not in PLAN_ROW_DTYPES:
+            raise ValueError(f"{kernel}: unknown output {name!r}")
+        if t.dtype != PLAN_ROW_DTYPES[name] or t.shape != (rows, s) or not t.is_contiguous() \
+                or t.device != device:
+            raise ValueError(f"{kernel}: output {name} must be a contiguous "
+                             f"{PLAN_ROW_DTYPES[name]}[{rows}, {s}] tensor on {device}")
+    if (buckets is None) != (demand is None):
+        raise ValueError(f"{kernel}: buckets and demand go together")
+    if buckets is not None:
+        ranks = buckets.pid.shape[0]
+        _check_columns(kernel, buckets, dict.fromkeys(("pid", "q1", "q2"), torch.int32),
+                       dict.fromkeys(("pid", "q1", "q2"), ranks), device)
+        if demand.dtype != torch.int64 or demand.shape != (rows, buckets.n) \
+                or not demand.is_contiguous() or demand.device != device:
+            raise ValueError(f"{kernel}: demand must be a contiguous int64[{rows}, "
+                             f"{buckets.n}] tensor on {device}")
+    if need_zero is None:
+        need_zero = torch.empty(1, dtype=torch.int32, device=device)
+    elif need_zero.dtype != torch.int32 or need_zero.shape != (1,) or need_zero.device != device:
+        raise ValueError(f"{kernel}: need_zero must be an int32[1] tensor on {device}")
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    lib = _load()
+    _set_device(lib, device, kernel)
+    rc = lib.inferno_plan_rows_launch(
+        rates.data_ptr(), rows, s, *(ptr(t) for t in lanes), float(penalty),
+        *((ptr(t) for t in zero) if zero is not None else (None,) * 5),
+        *((ptr(buckets.pid), ptr(buckets.q1), ptr(buckets.q2), buckets.n_pools, buckets.n)
+          if buckets is not None else (None, None, None, 0, 0)),
+        *(ptr(out.get(name)) for name in PLAN_ROW_DTYPES), ptr(demand), need_zero.data_ptr(),
+        torch.cuda.current_stream(device).cuda_stream,
+    )
+    _raise_on(lib, rc, f"{kernel} launch failed (rows={rows}, S={s}, lanes={n_lanes})")
+    PLAN_ROWS_LAUNCHES += 1
+    _prof.count("plan_rows_kernel_launches")

@@ -24,7 +24,9 @@ The cycle profiler's spans (`obs/profiler.py`) time the layers of a
 pass: `calculate_fleet` around the whole call, `snapshot_update`,
 `plan_repack` and `dispatch` (`solve_slots`: the launches and the copy
 back) inside it, and `plan_fold` around each row chunk of the planner's
-`FleetBatchPrep.solve`. `dispatches` counts the dispatches of
+`FleetBatchPrep.solve` (on the card: the copies, the launch and the sync
+that lands the results on the host); `plan_card_rows` and
+`plan_host_rows` count the rows each path solved. `dispatches` counts the dispatches of
 `solve_slots` (one per full pass or incremental cycle that solves
 anything). Nothing is compiled at dispatch: the kernel library's first
 load is its own span (`ops/cuda_queueing.py`). The hooks only observe:
@@ -33,8 +35,12 @@ decisions are bit-identical with the profiler on and off.
 The planner's batched time-axis solve (`prepare_fleet_batch`,
 `calculate_fleet_batch`, `FleetBatchPrep`) is ported too: its prep runs
 one full sizing of every bucket through `solve_slots` (the kernels on
-backend "cuda"), and its per-row replica fold, transition penalties and
-segment argmin stay host numpy, as in the reference.
+backend "cuda"). Its per-row replica fold, transition penalties, segment
+argmin and zero-load overlay run on the card on backend "cuda" without a
+spot tier, one launch of `ops/csrc/plan_rows_kernel.cu` a chunk that also
+sums each row's bucket demand for the Monte Carlo planner; on backend
+"torch", on the CPU and with a spot tier they run in host numpy, as in
+the reference (`FleetBatchPrep._solve_chunk`). Both give the same bits.
 
 Sharding (the reference's `shard_map` over a `jax.sharding.Mesh`): with a
 `parallel.mesh.FleetMesh` of more than one device (`mesh=`, `use_mesh=`,
@@ -1446,6 +1452,11 @@ class FleetBatchSlab:
     # chips without materializing the [rows, S] outputs
     lane_reps: np.ndarray | None  # i32[rows, n_lanes]
     zmask: np.ndarray | None  # bool[rows, S]; None = no zero-shortcut rows
+    # the card's rows only (`FleetBatchPrep.rows_on_card`, with `buckets=`):
+    # the winners' chips summed per row into the bucket columns of the
+    # ledger given to `solve` (pools, then quotas). The card path leaves
+    # `lane_reps` and `zmask` None.
+    demand: np.ndarray | None = None  # f64[rows, B]
 
     @property
     def rows(self) -> int:
@@ -1467,6 +1478,136 @@ def _batch_chunk_steps(requested: int | None, n_lanes: int) -> int:
     return max(1, 2_000_000 // max(n_lanes, 1))
 
 
+class _CardRows:
+    """The card's side of a `FleetBatchPrep` whose rows run on the card:
+    its lane and server columns, uploaded once; the zero-load table,
+    uploaded once it is built; a ledger's bucket map, uploaded once per
+    ledger; and a set of chunk buffers for each solve in flight
+    (`staging`), reused from chunk to chunk and from call to call: a
+    pinned host slab of rates and of each output asked for, their twins
+    on the card, and the demand. A solve nested in a consumer (the Monte
+    Carlo accumulator's binding flush re-solves through the same prep)
+    takes a set of its own, so it never writes over the slab its caller
+    still reads. It keeps no reference to its prep, so a prep and its
+    buffers go as soon as the prep's last user lets it go."""
+
+    def __init__(self, prep: "FleetBatchPrep"):
+        from inferno_tpu_torch.ops import cuda_queueing as cq
+
+        self.n_ranks = len(prep.accelerators)
+        self.device = prep.device
+        n_srv = prep.n_servers
+        lane_lo = np.zeros(n_srv + 1, np.int32)
+        if prep.n_lanes:
+            lane_lo[:] = np.searchsorted(prep.lane_server, np.arange(n_srv + 1))
+            cols = (prep._l_rate_star, prep._l_tps, prep._l_out, prep._l_min_reps,
+                    prep._l_cpr, prep._l_same, prep._l_creps, prep._l_ccost,
+                    prep.lane_rank, prep.lane_chips)
+        else:
+            cols = (np.zeros(0),) * 10
+        flags = prep._has_load.astype(np.uint8) | (prep._out_zero.astype(np.uint8) << 1)
+        dtypes = (np.float32, np.float32, np.float32, np.int32, np.float32, np.uint8,
+                  np.int64, np.float64, np.int32, np.int64)
+        self.lanes = cq.PlanLanes(
+            self._up(lane_lo), self._up(flags),
+            *(self._up(np.asarray(c, dt)) for c, dt in zip(cols, dtypes)),
+        )
+        self.zero = None
+        self._ledger = self._buckets = None
+        # idle buffer sets, each ({host name: pinned}, {card name: tensor})
+        self._idle: list[tuple[dict, dict]] = []
+
+    def _up(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _slab(self, pool: dict, name: str, rows: int, width: int, dtype, pin: bool):
+        """The first `rows` rows of buffer `name` ([>= rows, width]), grown
+        when a chunk outgrows it."""
+        buf = pool.get(name)
+        if buf is None or buf.shape[0] < rows or buf.shape[1] != width:
+            buf = pool[name] = torch.empty(
+                (rows, width), dtype=dtype,
+                **({"pin_memory": True} if pin else {"device": self.device}),
+            )
+        return buf[:rows]
+
+    @contextlib.contextmanager
+    def staging(self):
+        """A set of chunk buffers for one solve call, no other call's while
+        it is held."""
+        st = self._idle.pop() if self._idle else ({}, {})
+        try:
+            yield st
+        finally:
+            self._idle.append(st)
+
+    def bucket_map(self, ledger):
+        from inferno_tpu_torch.ops import cuda_queueing as cq
+
+        if ledger is not self._ledger:
+            if len(ledger.rank_pid) != self.n_ranks:
+                raise ValueError("the bucket ledger's ranks are not the prep's accelerators")
+            n_pools = len(ledger.pools)
+            self._buckets = cq.PlanBuckets(
+                *(self._up(np.asarray(m, np.int32))
+                  for m in (ledger.rank_pid, ledger.rank_q1, ledger.rank_q2)),
+                n_pools, n_pools + len(ledger.quota_keys),
+            )
+            self._ledger = ledger
+        return self._buckets
+
+    def solve_chunk(self, st, r: np.ndarray, keys, ledger, zero_table):
+        """One [rows, S] slab on the card, in the buffers `st` (from
+        `staging`): ({key: its [rows, S] output, a view of one of them},
+        the f64[rows, B] demand or None).
+        `zero_table()` builds the zero-load table on the host the first
+        time a slab needs it. Returns once the results are on the host."""
+        from inferno_tpu_torch.ops import cuda_queueing as cq
+
+        rows, n_srv = r.shape
+        stream = torch.cuda.current_stream(self.device)
+        host_pool, card_pool = st
+        host_r = self._slab(host_pool, "rates", rows, n_srv, torch.float64, True)
+        np.copyto(host_r.numpy(), r)
+        rates = self._slab(card_pool, "rates", rows, n_srv, torch.float64, False)
+        rates.copy_(host_r, non_blocking=True)
+        out = {k: self._slab(card_pool, k, rows, n_srv, cq.PLAN_ROW_DTYPES[k], False)
+               for k in keys}
+        buckets = self.bucket_map(ledger) if ledger is not None else None
+        if buckets is not None and buckets.n == 0:
+            buckets = None
+        demand = (self._slab(card_pool, "demand", rows, buckets.n, torch.int64, False)
+                  if buckets is not None else None)
+        need_zero = self._slab(card_pool, "need_zero", 1, 1, torch.int32, False)[0]
+        host = {k: self._slab(host_pool, k, rows, n_srv, cq.PLAN_ROW_DTYPES[k], True)
+                for k in keys}
+        host_demand = (self._slab(host_pool, "demand", rows, buckets.n, torch.int64, True)
+                       if buckets is not None else None)
+        host_need = self._slab(host_pool, "need_zero", 1, 1, torch.int32, True)[0]
+        for _ in range(2):
+            cq.plan_rows(rates, self.lanes, ACCEL_PENALTY_FACTOR, self.zero, out,
+                         buckets, demand, need_zero)
+            for k in keys:
+                host[k].copy_(out[k], non_blocking=True)
+            if demand is not None:
+                host_demand.copy_(demand, non_blocking=True)
+            host_need.copy_(need_zero, non_blocking=True)
+            stream.synchronize()
+            if self.zero is not None or not int(host_need[0]):
+                break
+            # a zero-load cell met the table before it was built: build it
+            # on the host (the transition basis pinned at the prep's
+            # __init__), upload it once, and solve the slab again
+            table = zero_table()
+            self.zero = cq.PlanZero(*(self._up(table[k]) for k in cq.PlanZero._fields))
+        views = {k: host[k].numpy() for k in keys}
+        if host_demand is None:
+            dem = np.zeros((rows, 0), np.float64) if ledger is not None else None
+        else:
+            dem = host_demand.numpy().astype(np.float64)
+        return views, dem
+
+
 class FleetBatchPrep:
     """The rate-independent half of the batched time-axis solve,
     prepared ONCE and replayed over any number of [T, S] or
@@ -1481,7 +1622,9 @@ class FleetBatchPrep:
     current-allocation transition basis, and the zero-load shortcut
     table. `solve` then runs only the per-row work — the f32 replica
     fold, transition penalties, and the per-server segment argmin — over
-    [rows, lanes] slabs of the flattened (seeds x steps) axis.
+    [rows, lanes] slabs of the flattened (seeds x steps) axis: on the card
+    where `rows_on_card` (backend "cuda", no spot tier; `_CardRows`),
+    else in host numpy (`_solve_chunk`), with the same bits.
 
     The Monte Carlo driver (planner/montecarlo.py) prepares one context
     and streams hundreds of seeded traces through ``solve(...,
@@ -1536,6 +1679,11 @@ class FleetBatchPrep:
         self._cur_allocs = [s.cur_allocation for s in servers_list]
 
         self.spot_on = bool(getattr(system, "spot", None))
+        # where the per-row work runs: on the card (plan_rows_kernel.cu)
+        # for backend "cuda" (always a CUDA device) without a spot tier,
+        # else host numpy (`_solve_chunk`); the two give the same bits
+        self.rows_on_card = backend == "cuda" and not self.spot_on
+        self._card_rows = None
 
         # zero-load shortcut basis: the per-timestep rate replaces the
         # arrival rate, so any server can hit rate == 0 at some row. The
@@ -1725,11 +1873,12 @@ class FleetBatchPrep:
     # -- the per-slab kernel --------------------------------------------------
 
     def _solve_chunk(self, r: np.ndarray, out: dict, needs: frozenset):
-        """Solve one [rows, S] rate slab into the prefilled `out` views
-        (only keys in `needs` — plus the spot columns when the tier is
-        on — exist). Returns (lane_reps, zmask) for streaming consumers.
-        The arithmetic and operation order are EXACTLY the per-cycle
-        writeback's (tests/test_planner.py pins serial parity)."""
+        """Solve one [rows, S] rate slab on the host into the prefilled
+        `out` views (only keys in `needs` — plus the spot columns when the
+        tier is on — exist). Returns (lane_reps, zmask) for streaming
+        consumers. The arithmetic and operation order are EXACTLY the
+        per-cycle writeback's (tests/test_planner.py pins serial parity),
+        and `plan_rows_kernel.cu`'s."""
         reps = None
         zmask = None
         if self.n_lanes:
@@ -1891,6 +2040,7 @@ class FleetBatchPrep:
         consume=None,
         needs=None,
         validate: bool = True,
+        buckets=None,
     ) -> FleetBatchResult | None:
         """Solve a rate tensor against the prepared fleet.
 
@@ -1909,7 +2059,15 @@ class FleetBatchPrep:
         needs `chips` + `cost` skips the f64 value chain entirely on
         single-lane fleets. `validate=False` skips the finiteness scan —
         for drivers whose generators already guarantee finite, >= 0
-        rates (planner/scenarios.py clamps at build time)."""
+        rates (planner/scenarios.py clamps at build time).
+
+        Where the rows run on the card (`rows_on_card`), each chunk is one
+        launch of `ops/csrc/plan_rows_kernel.cu` and its outputs come back
+        to the host before the chunk's span closes; `buckets` (consume
+        mode: a `solver.greedy_vec.capacity_buckets` ledger) also has the
+        kernel sum each row's winner chips into the ledger's columns,
+        handed over as `slab.demand`. On the host path `slab.demand` is
+        None."""
         rates = np.asarray(rates, np.float64)
         if rates.ndim not in (2, 3) or rates.shape[-1] != self.n_servers:
             raise ValueError(
@@ -1929,6 +2087,9 @@ class FleetBatchPrep:
             # surface; silently dropping the trim would hide both the
             # intent and any typo in the names
             raise ValueError("needs= trims streaming outputs; it requires "
+                             "consume=")
+        if buckets is not None and consume is None:
+            raise ValueError("buckets= sums streaming demand; it requires "
                              "consume=")
         if needs is None:
             needs = frozenset(BATCH_OUTPUTS)
@@ -1957,61 +2118,86 @@ class FleetBatchPrep:
         if spot_on:
             keys += ["spot_replicas", "required"]
 
-        if consume is None:
-            full = {
-                key: np.full((n_rows, n_srv), fills[key][1], fills[key][0])
+        card = None
+        staging = contextlib.nullcontext()
+        if self.rows_on_card:
+            if self._card_rows is None:
+                self._card_rows = _CardRows(self)
+            card = self._card_rows
+            staging = card.staging()
+        rows_counter = "plan_card_rows" if card is not None else "plan_host_rows"
+
+        with staging as st:
+            if consume is None:
+                full = {
+                    key: np.full((n_rows, n_srv), fills[key][1], fills[key][0])
+                    for key in keys
+                }
+                for t0 in range(0, n_rows, chunk):
+                    r = flat[t0 : t0 + chunk]
+                    views = {key: arr[t0 : t0 + len(r)] for key, arr in full.items()}
+                    with _prof.span("plan_fold"):
+                        if card is not None:
+                            got, _ = card.solve_chunk(
+                                st, r, keys, None, self._ensure_zero_table)
+                            for key, view in views.items():
+                                np.copyto(view, got[key])
+                        else:
+                            self._solve_chunk(r, views, needs)
+                    _prof.count(rows_counter, len(r))
+
+                def shaped(key):
+                    arr = full.get(key)
+                    return None if arr is None else arr.reshape(lead + (n_srv,))
+
+                return FleetBatchResult(
+                    servers=self.servers,
+                    accelerators=self.accelerators,
+                    choice=shaped("choice"),
+                    replicas=shaped("replicas"),
+                    chips=shaped("chips"),
+                    cost=shaped("cost"),
+                    value=shaped("value"),
+                    spot_replicas=shaped("spot_replicas"),
+                    required=shaped("required"),
+                )
+
+            bufs = {} if card is not None else {
+                key: np.empty((min(chunk, max(n_rows, 1)), n_srv), fills[key][0])
                 for key in keys
             }
             for t0 in range(0, n_rows, chunk):
                 r = flat[t0 : t0 + chunk]
-                views = {key: arr[t0 : t0 + len(r)] for key, arr in full.items()}
-                with _prof.span("plan_fold"):
-                    self._solve_chunk(r, views, needs)
-
-            def shaped(key):
-                arr = full.get(key)
-                return None if arr is None else arr.reshape(lead + (n_srv,))
-
-            return FleetBatchResult(
-                servers=self.servers,
-                accelerators=self.accelerators,
-                choice=shaped("choice"),
-                replicas=shaped("replicas"),
-                chips=shaped("chips"),
-                cost=shaped("cost"),
-                value=shaped("value"),
-                spot_replicas=shaped("spot_replicas"),
-                required=shaped("required"),
-            )
-
-        bufs = {
-            key: np.empty((min(chunk, max(n_rows, 1)), n_srv), fills[key][0])
-            for key in keys
-        }
-        for t0 in range(0, n_rows, chunk):
-            r = flat[t0 : t0 + chunk]
-            rows = len(r)
-            views = {}
-            for key, buf in bufs.items():
-                view = buf[:rows]
-                view.fill(fills[key][1])
-                views[key] = view
-            with _prof.span("plan_fold"):
-                lane_reps, zmask = self._solve_chunk(r, views, needs)
-            consume(FleetBatchSlab(
-                row0=t0,
-                rates=r,
-                choice=views.get("choice"),
-                replicas=views.get("replicas"),
-                chips=views.get("chips"),
-                cost=views.get("cost"),
-                value=views.get("value"),
-                spot_replicas=views.get("spot_replicas"),
-                required=views.get("required"),
-                lane_reps=lane_reps,
-                zmask=zmask,
-            ))
-        return None
+                rows = len(r)
+                demand = lane_reps = zmask = None
+                if card is not None:
+                    with _prof.span("plan_fold"):
+                        views, demand = card.solve_chunk(
+                            st, r, keys, buckets, self._ensure_zero_table)
+                else:
+                    views = {}
+                    for key, buf in bufs.items():
+                        view = buf[:rows]
+                        view.fill(fills[key][1])
+                        views[key] = view
+                    with _prof.span("plan_fold"):
+                        lane_reps, zmask = self._solve_chunk(r, views, needs)
+                _prof.count(rows_counter, rows)
+                consume(FleetBatchSlab(
+                    row0=t0,
+                    rates=r,
+                    choice=views.get("choice"),
+                    replicas=views.get("replicas"),
+                    chips=views.get("chips"),
+                    cost=views.get("cost"),
+                    value=views.get("value"),
+                    spot_replicas=views.get("spot_replicas"),
+                    required=views.get("required"),
+                    lane_reps=lane_reps,
+                    zmask=zmask,
+                    demand=demand,
+                ))
+            return None
 
 
 def prepare_fleet_batch(
@@ -2064,14 +2250,15 @@ def calculate_fleet_batch(
     depend only on profiles and SLO targets), so the grid solve on the
     card is hoisted out of the time AND seed axes entirely
     (`prepare_fleet_batch` exposes the prepared context for drivers that
-    replay many tensors). Per row only the replica fold
-    (`ops.queueing.fold_replicas` with `xp=np`, the exact f32 arithmetic
-    of the sizing program), the f64 transition penalties, and the per-server
-    (value, cost, rank) argmin run — vectorized numpy over
-    [rows, lanes] slabs (`chunk_steps` / PLANNER_CHUNK_STEPS bounds the
-    resident slab on the flattened axis; chunk placement never changes
-    results). Zero-rate rows take the closed-form zero-load shortcut,
-    built lazily once per prep.
+    replay many tensors). Per row only the replica fold (the exact f32
+    arithmetic of the sizing program), the f64 transition penalties, and
+    the per-server (value, cost, rank) argmin run — one kernel launch a
+    slab on backend "cuda" without a spot tier, else vectorized numpy
+    (`ops.queueing.fold_replicas` with `xp=np`) over [rows, lanes] slabs
+    (`chunk_steps` / PLANNER_CHUNK_STEPS bounds the resident slab on the
+    flattened axis; chunk placement never changes results). Zero-rate
+    rows take the closed-form zero-load shortcut, built lazily once per
+    prep.
 
     `backend`/`device` are `calculate_fleet`'s: "cuda" (the default) on
     the card, or "torch" on any device (`device="cpu"` on a machine

@@ -24,28 +24,33 @@ derivation, the sizing grid on the card, the zero-load table — is prepared
 ONCE (`parallel.fleet.prepare_fleet_batch`) and every seed streams
 through `FleetBatchPrep.solve(consume=...)` in [rows, lanes] slabs of
 the flattened (seeds x steps) axis, so per-(seed, timestep) work is
-only the f32 replica fold, transition penalties, and the segment
-argmin; nothing is ever materialized beyond one slab (peak memory is
-the PLANNER_CHUNK_STEPS bound regardless of seed count). Aggregation is
-exact: per-seed envelope inputs are BIT-IDENTICAL to what
-`aggregate_replay` computes for the same seed's trace (integer-valued
-f64 demand sums are order-independent; cost rows reuse the same
-pairwise sum; the binding fill is one shared implementation) — pinned
-in tests/test_montecarlo.py.
+only the f32 replica fold, transition penalties, the segment argmin
+and the bucket demand; nothing is ever materialized beyond one slab
+(peak memory is the PLANNER_CHUNK_STEPS bound regardless of seed
+count). Aggregation is exact: per-seed envelope inputs are
+BIT-IDENTICAL to what `aggregate_replay` computes for the same seed's
+trace (integer demand sums are order-independent; cost rows reuse the
+same pairwise sum; the binding fill is one shared implementation) —
+pinned in tests/test_torch_montecarlo.py, and on the card in
+tests/test_torch_plan_rows_kernel.py.
 
 Seed derivation follows the fixed-generator-index convention of the
 traffic and storm generators (`scenarios.ensemble_seeds`): member 0 of an ensemble is exactly
 the single-replay trace, and no (scenario, member) pair ever collides.
 
-Port of `inferno_tpu/planner/montecarlo.py`, verbatim apart from its
-imports and the backend: `replay_montecarlo` takes `backend` ("cuda", the
-default, or "torch") and `device` (None = the CUDA card) beside the
-reference's `mesh` (a `parallel.mesh.FleetMesh`), which splits the prep's
-grid solve over its devices as the reference's does (`SIZING_SHARDS` does
-not apply there). The cycle profiler's span `plan_feed` times the envelope
-accumulator's fold of each slab, beside `plan_fold` (the slab's per-row
-fold and argmin, `parallel/fleet.py`); the report's `profile` counts both
-in its `solve_ms`.
+Port of `inferno_tpu/planner/montecarlo.py`. `replay_montecarlo` takes
+`backend` ("cuda", the default, or "torch") and `device` (None = the CUDA
+card) beside the reference's `mesh` (a `parallel.mesh.FleetMesh`), which
+splits the prep's grid solve over its devices as the reference's does
+(`SIZING_SHARDS` does not apply there). On backend "cuda" without a spot
+tier the rows run on the card (`FleetBatchPrep.rows_on_card`): the
+accumulator hands its bucket ledger to the prep, the kernel sums each
+row's demand, and the accumulator keeps only the cost sum, the binding
+test and the report; elsewhere the accumulator is the reference's. The
+cycle profiler's span `plan_feed` times the envelope accumulator's fold of
+each slab, beside `plan_fold` (the slab's per-row fold and argmin,
+`parallel/fleet.py`); the report's `profile` counts both in its
+`solve_ms`.
 """
 
 from __future__ import annotations
@@ -97,8 +102,11 @@ class _EnvelopeAccumulator:
     winners into per-row bucket chip demand and fleet cost, collecting
     binding rows for the (rare) exact degradation fill afterwards.
 
-    Two paths, identical results:
+    Three paths, identical results:
 
+    * rows solved on the card (`prep.rows_on_card`): the kernel sums the
+      demand with its winners and hands it over as `slab.demand`; only
+      the cost sum and the binding test run here;
     * single-lane fleets (`prep.all_seg1`): demand comes from one exact
       integer-valued f64 GEMM over the raw lane fold (`slab.lane_reps @
       W`), with sparse corrections where the zero-load overlay replaced
@@ -107,9 +115,9 @@ class _EnvelopeAccumulator:
     * general fleets: the same bincount as `aggregate_replay` over the
       slab's winner arrays.
 
-    Demand values are integers carried in f64 (sums exact and
-    order-independent below 2^53), so both paths equal the per-seed
-    `aggregate_replay` numbers BIT-identically."""
+    Demand values are integers (summed as such on the card, carried in
+    f64 on the host: exact and order-independent below 2^53), so every
+    path equals the per-seed `aggregate_replay` numbers BIT-identically."""
 
     def __init__(
         self,
@@ -143,7 +151,11 @@ class _EnvelopeAccumulator:
         self._quota_budget = ledger.quota_remaining.astype(np.float64)
         self._any_budget = bool(self.configured_pid.any()) or self.n_quotas > 0
 
-        self.fast = bool(prep.all_seg1 and prep.n_lanes)
+        # the card's rows bring each row's bucket demand with them
+        # (`slab.demand`, from the kernel's own winners); the host's are
+        # summed here, by one of the two numpy paths
+        on_card = prep.rows_on_card
+        self.fast = bool(prep.all_seg1 and prep.n_lanes) and not on_card
         if self.fast:
             # lane -> bucket chip-weight matrix: winner chips land in the
             # lane's pool column and each matching quota column; on a
@@ -166,7 +178,9 @@ class _EnvelopeAccumulator:
             lane_of[prep.seg_server] = lanes
             self._lane_of = lane_of
             self._zero_add = None  # built lazily with the zero table
-        self.needs = ("cost",) if self.fast else ("choice", "chips", "cost")
+        self.needs = (
+            ("cost",) if self.fast or on_card else ("choice", "chips", "cost")
+        )
 
     def _zero_bucket_add(self):
         """[S, B] bucket contribution of each server's ZERO-LOAD pick —
@@ -198,7 +212,9 @@ class _EnvelopeAccumulator:
         r0 = self.base_row + slab.row0
         rows = slab.rows
         B = self.n_pools + self.n_quotas
-        if self.fast:
+        if slab.demand is not None:
+            demand = slab.demand
+        elif self.fast:
             demand = slab.lane_reps.astype(np.float64) @ self._W
             if slab.zmask is not None:
                 # the overlay replaced the sized pick at these cells:
@@ -439,13 +455,14 @@ def replay_montecarlo(
 
             prep.solve(
                 trace.rates, chunk_steps=chunk_steps, consume=tee,
-                needs=("choice", "replicas", "chips", "cost"), validate=False,
+                needs=("choice", "replicas", *acc.needs), validate=False,
+                buckets=acc.ledger,
             )
             kept[k] = sink
         else:
             prep.solve(
                 trace.rates, chunk_steps=chunk_steps, consume=acc.feed,
-                needs=acc.needs, validate=False,
+                needs=acc.needs, validate=False, buckets=acc.ledger,
             )
         solve_ms += time.perf_counter() - t0
     profile["generate_ms"] = round(gen_ms * 1000.0, 1)

@@ -44,13 +44,15 @@ from test_torch_controller import (
 PROCESS_DEPENDENT = ("jit_compiles", "jit_compile_ms", "jit_execute_ms")
 # the reference's counter -> the port's name for it
 RENAMED = {"jit_dispatches": "dispatches"}
-# the port's own counters: its spans' milliseconds, the kernel library's
-# loads and the kernels' launches (the last two on backend "cuda" only)
+# the port's own counters: its spans' milliseconds, the planner's rows by
+# path, the kernel library's loads and the kernels' launches (the last two
+# on backend "cuda" only)
 PORT_ONLY = frozenset({
     "calculate_fleet_ms", "calculate_fleet_self_ms", "dispatch_ms", "kernel_library_load_ms",
     "solver_assign_ms", "solver_diff_ms", "solver_pools_ms", "solver_solution_ms",
-    "plan_fold_ms", "plan_feed_ms",
+    "plan_fold_ms", "plan_feed_ms", "plan_card_rows", "plan_host_rows",
     "kernel_library_loads", "stats_kernel_launches", "bisect_kernel_launches",
+    "plan_rows_kernel_launches",
 })
 
 
