@@ -33,7 +33,13 @@ imports and these changes:
 * the flight recorder (`flight_recorder_dir`, env FLIGHT_RECORDER_DIR)
   writes the reference's artifact format through the port's
   `obs/recorder.py`; the port's planner (`--trace`) and either
-  package's `read_artifact` replay it.
+  package's `read_artifact` replay it;
+* the cycle's phases are also `obs.profiler` spans
+  (`reconcile_collect`, `reconcile_analyze`, `reconcile_solve`,
+  `reconcile_actuate`, on the cycle's own profile; `reconcile_finish`
+  around what `_finish_cycle` does once the profile is sealed, on the
+  profiler active around the cycle), and the profile counts
+  `status_writes` and `collect_fallback_variants`. Observation only.
 """
 
 from __future__ import annotations
@@ -107,6 +113,7 @@ from inferno_tpu_torch.obs import (
     TraceBuffer,
     Tracer,
 )
+from inferno_tpu_torch.obs import profiler as _prof
 from inferno_tpu_torch.solver import Optimizer
 
 DEFAULT_INTERVAL_SECONDS = 60  # reference: variantautoscaling_controller.go:94-101
@@ -364,6 +371,9 @@ class _Collected:
     asleep: bool = False
     current: Any = None  # CurrentAlloc
     elapsed_s: float = 0.0  # worker wall time (per-variant analysis metric)
+    # the grouped query missed this variant (or failed), so its metrics
+    # came from its own per-variant queries
+    fell_back: bool = False
 
 
 class Reconciler:
@@ -847,6 +857,7 @@ class Reconciler:
         if fleet is not None:
             validation = validate_from_fleet(fleet, va.spec.model_id, va.namespace)
         if validation is None:
+            c.fell_back = self.config.grouped_collection
             scrape_t0 = time.perf_counter()
             try:
                 validation = validate_metrics_availability(
@@ -1210,7 +1221,7 @@ class Reconciler:
     def _cycle_inner(
         self, tracer: Tracer, report: CycleReport, prom: _CountingProm
     ) -> None:
-        with tracer.span("collect") as sp:
+        with tracer.span("collect") as sp, _prof.span("reconcile_collect"):
             engine = engine_for(self.config.engine)
             try:
                 # _read_cm absorbs NotFound only; a transient apiserver
@@ -1307,7 +1318,7 @@ class Reconciler:
             capacity=capacity,
         )
         prepared: list[VariantAutoscaling] = []
-        with tracer.span("analyze") as sp:
+        with tracer.span("analyze") as sp, _prof.span("reconcile_analyze"):
             # SLO lookup up front on the reconcile thread: _find_slo reads
             # `classes`, which assembly mutates per variant — workers must
             # never race that (and the fallback warnings stay ordered)
@@ -1343,6 +1354,7 @@ class Reconciler:
                             rec=rec, ok=False,
                             errors=[f"{va.full_name}: collect: {e}"],
                         ))
+            fallbacks = 0
             for i, va in enumerate(vas):
                 t0 = time.perf_counter()
                 with tracer.span("variant", variant=va.full_name) as vsp:
@@ -1363,6 +1375,8 @@ class Reconciler:
                 )
                 if ok:
                     prepared.append(va)
+                fallbacks += c.fell_back
+            _prof.count("collect_fallback_variants", fallbacks)
             sp.set(variants_prepared=len(prepared))
         report.variants_prepared = len(prepared)
         if not prepared:
@@ -1374,7 +1388,10 @@ class Reconciler:
             # consumes (per-cycle-fresh objects — safe to serialize on
             # the recorder's writer thread after the cycle completes)
             self._cycle_spec = spec
-        with tracer.span("solve", backend=self.config.compute_backend) as sp:
+        with (
+            tracer.span("solve", backend=self.config.compute_backend) as sp,
+            _prof.span("reconcile_solve"),
+        ):
             t0 = time.perf_counter()
             try:
                 cached_names, signatures = self._replay_sizing_cache(system)
@@ -1451,8 +1468,10 @@ class Reconciler:
             )
             self._publish_spot(system)
 
-        with tracer.span("actuate") as sp:
+        with tracer.span("actuate") as sp, _prof.span("reconcile_actuate"):
             self._apply(prepared, solution, report, system)
+            # every applied variant's status update was written
+            _prof.count("status_writes", report.variants_applied)
             sp.set(variants_applied=report.variants_applied)
 
     def _drain_event_dirty(self, system: System) -> list[str] | None:
@@ -1663,6 +1682,19 @@ class Reconciler:
                 started_at=started_iso,
                 interval_seconds=report.interval_seconds,
             )
+        # the rest runs after the cycle's profile is sealed: its span
+        # charges whatever profiler is active around the cycle (none in a
+        # deployment)
+        with _prof.span("reconcile_finish"):
+            self._finish_sealed(tracer, report, root, started_iso)
+
+    def _finish_sealed(
+        self, tracer: Tracer, report: CycleReport, root: Span, started_iso: str
+    ) -> None:
+        """The part of `_finish_cycle` after the profile document is
+        built: its ring and series, attainment scoring, the decision log,
+        the trace ring, the flight recorder and the heartbeat."""
+        if report.profile is not None:
             self.profiles.append(report.profile)
             self.profiler_instruments.observe_profile(
                 report.profile, report.interval_seconds

@@ -54,7 +54,11 @@ returns one shared no-op context. Names the port times this way:
 ``calculate_fleet``, ``snapshot_update``, ``plan_repack``, ``dispatch``,
 ``incremental_scatter``, ``incremental_writeback``, ``solver_assign``,
 ``solver_diff``, ``solver_pools``, ``solver_solution``, ``plan_fold``,
-``plan_feed``, ``kernel_library_load``.
+``plan_feed``, ``kernel_library_load``, and the reconcile cycle's phases
+``reconcile_collect``, ``reconcile_analyze``, ``reconcile_solve``,
+``reconcile_actuate`` and ``reconcile_finish`` (the last opens after the
+cycle's own profile is sealed, so it charges the profiler active around
+the cycle, if any).
 
 Port of `inferno_tpu/obs/profiler.py`: the reference's hooks and
 document, plus `span`, a profiler clock, and profilers that nest: each
