@@ -28,10 +28,11 @@ import time
 
 import numpy as np
 
-from benchmark import common
+from benchmark import common, roofline
 from benchmark.entries import cycle
 from benchmark.inputs import traffic
 from benchmark.reference import reconcile as ref
+from benchmark.reference import sizing
 from inferno_tpu_torch.controller.engines import (
     LABEL_ACCELERATOR, LABEL_OUT_NAMESPACE, LABEL_VARIANT,
 )
@@ -39,6 +40,8 @@ from inferno_tpu_torch.controller.kube import InMemoryCluster
 
 NAMESPACE = "fleet"
 CHECKED = ("rate_gap", "decisions_off", "gauges_off", "unwritten")
+SPAN_CYCLE = "run_cycle"
+SPAN_PREPARE = "prepare"
 
 
 def variant_name(i: int) -> str:
@@ -248,6 +251,7 @@ class Bench:
         self._last = None  # the newest cycle's report
         self.rss = []  # VmRSS (kB) after the warm cycles, then after each timed cycle
         self.step_ms = []
+        self.launches = []  # the kernels' launch counters as the window opens and closes
 
     def _run_cycle(self):
         self.cluster.cycle = self.cycle_index
@@ -268,12 +272,22 @@ class Bench:
             self.prepare()
             self._run_cycle()
         self.rss.append(rss_kb())
+        self.launches.append(self._launch_counts())
+
+    def _launch_counts(self):
+        """(stats_kernel, bisect_kernel) launches so far in this process;
+        None off the card, where the kernels never run."""
+        if self.device.type != "cuda":
+            return None
+        from inferno_tpu_torch.ops import cuda_queueing
+
+        return cuda_queueing.LAUNCHES, cuda_queueing.BISECT_LAUNCHES
 
     def prepare(self):
         """The next cycle's inputs, outside the timed part: each Deployment
         scaled to its gauge, as the HPA would, and the table swapped."""
         self.cycle_index += 1
-        with self.spans.span("prepare"):
+        with self.spans.span(SPAN_PREPARE):
             gauges = self.gauges()
             for i, (desired, _) in enumerate(gauges):
                 if desired >= 0 and desired != self.replicas[i]:
@@ -288,7 +302,8 @@ class Bench:
         """One timed reconcile cycle: (its host milliseconds, 1 cycle done)."""
         self.prepare()
         t0 = time.perf_counter()
-        report = self._run_cycle()
+        with self.spans.span(SPAN_CYCLE):
+            report = self._run_cycle()
         ms = (time.perf_counter() - t0) * 1000.0
         self.rss.append(rss_kb())
         self.step_ms.append(ms)
@@ -351,6 +366,7 @@ class Bench:
 
         if self.cycle_index not in self.captured and self.cycle_index > self.warm_cycles:
             self._capture(self._last)
+        self.launches.append(self._launch_counts())
         self._last = None
         self.rec.close()
         self.rec = None
@@ -381,5 +397,39 @@ class Bench:
     def layer_context(self, traced: bool) -> dict:
         """What the per-layer readers need of this entry: the window's
         cycles' own profile counters, summed (inside a cycle its own
-        profiler, not the window's, is active)."""
-        return {"cycle_counters": dict(self.counters)}
+        profiler, not the window's, is active); with a trace, the least
+        device seconds of the window's cycles (`roofline`) and, on the
+        card, each sizing kernel's launches a cycle."""
+        ctx = {"cycle_counters": dict(self.counters)}
+        if not traced:
+            return ctx
+        first = self.warm_cycles + 1
+        ctx["sizing_bound_s"] = self.bound_s(first, self.cycle_index)
+        cycles = self.cycle_index - self.warm_cycles
+        opened, closed = self.launches
+        if opened is not None and cycles > 0:
+            ctx["stats_kernel_launches"] = (closed[0] - opened[0]) / cycles
+            ctx["bisect_kernel_launches"] = (closed[1] - opened[1]) / cycles
+        return ctx
+
+    def bound_s(self, first: int, last: int) -> float:
+        """The least device seconds for cycles first..last: each cycle's
+        changed lanes, found by content against the cycle before, among
+        the lanes the controller's rules size (the current shape's,
+        KEEP_ACCELERATOR)."""
+        pinned = ref.pinned(self.fleet)
+        prev = traffic.state_at(self.fleet, self.mix, self.seed, first - 1)
+        total = 0.0
+        for c in range(first, last + 1):
+            state = {k: v.copy() for k, v in prev.items()}
+            traffic.step(self.fleet, state, self.mix, self.seed, c)
+            lanes = sizing.lanes_of(pinned, state)
+            var = lanes["var"]
+            tokens = (state["in_tok"] != prev["in_tok"]) | (state["out_tok"] != prev["out_tok"])
+            rate = state["lam"] != prev["lam"]
+            sized = None
+            if tokens[var].any():
+                sized = sizing.size(lanes, dtype=self.torch.float64, device=self.device)
+            total += roofline.cycle_bound_s(lanes, sized, tokens[var], rate[var])
+            prev = state
+        return total

@@ -1470,8 +1470,6 @@ class Reconciler:
 
         with tracer.span("actuate") as sp, _prof.span("reconcile_actuate"):
             self._apply(prepared, solution, report, system)
-            # every applied variant's status update was written
-            _prof.count("status_writes", report.variants_applied)
             sp.set(variants_applied=report.variants_applied)
 
     def _drain_event_dirty(self, system: System) -> list[str] | None:
@@ -1823,6 +1821,7 @@ class Reconciler:
                 report.errors.extend(errors)
                 if applied:
                     report.variants_applied += 1
+                    _prof.count("status_writes")
                 gate_lost = gate_lost or lost
             if gate_lost:
                 report.errors.append(
@@ -1849,6 +1848,7 @@ class Reconciler:
             report.errors.extend(errors)
             if applied:
                 report.variants_applied += 1
+                _prof.count("status_writes")
 
     def _apply_one(
         self,
@@ -1860,8 +1860,11 @@ class Reconciler:
     ) -> tuple[list[str], bool, bool]:
         """Apply one variant's decision: refetch, stabilize, write status
         and conditions, emit actuation metrics. Returns (errors, applied,
-        gate_lost); safe to run on a pool worker — touches only this
-        variant's objects plus the thread-safe emitter/stabilizer."""
+        gate_lost), `applied` true once the status write has landed (the
+        caller counts it in `status_writes` on the reconcile thread, whose
+        profiler is the cycle's: a pool worker has none); safe to run on a
+        pool worker — touches only this variant's objects plus the
+        thread-safe emitter/stabilizer."""
         errors: list[str] = []
         if not self.gate():
             # deposed mid-cycle: the new leader owns this write

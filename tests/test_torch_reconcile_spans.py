@@ -1,8 +1,8 @@
 """The reconcile cycle's own spans and counters (`controller/reconciler.py`):
 each phase of `run_cycle` is an `obs.profiler.span` charged to the cycle's
 profile, the cycle's finish (after its profile is sealed) is charged to
-the profiler active around the cycle, and the status writes and collect
-fallbacks are counted. Observation only: decisions are bit-identical with
+the profiler active around the cycle, and the status writes that land and
+the collect fallbacks are counted. Observation only: decisions are bit-identical with
 the cycle profiler on and off. On the CPU, 60 variants."""
 
 from __future__ import annotations
@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 
 from inferno_tpu_torch.controller import Reconciler, ReconcilerConfig
+from inferno_tpu_torch.controller.kube import Conflict
 from inferno_tpu_torch.obs import CycleProfiler
 from inferno_tpu_torch.parallel import reset_fleet_state
 from inferno_tpu_torch.testing.fleet import (
@@ -98,6 +99,29 @@ def test_a_grouped_miss_counts_every_variant_that_fell_back():
     assert report.optimization_ok and not report.errors, report.errors[:3]
     assert report.profile["counters"]["collect_fallback_variants"] == N
     assert report.profile["counters"]["status_writes"] == N
+
+
+@pytest.mark.parametrize("workers", [1, 4])
+def test_a_status_write_that_fails_is_not_counted(workers):
+    """`status_writes` counts the writes that landed: with the API server
+    refusing three variants' status updates, on one worker and on a pool
+    (whose threads carry no profiler), 3 fewer than the variants."""
+    rec, cluster = _reconciler(reconcile_concurrency=workers)
+    refused = {fleet_variant(i) for i in (0, 1, 2)}
+    real = cluster.update_variant_autoscaling_status
+
+    def update(va):
+        if va.name in refused:
+            raise Conflict(f"{va.name}: refused")
+        return real(va)
+
+    cluster.update_variant_autoscaling_status = update
+    try:
+        report = rec.run_cycle()
+    finally:
+        rec.close()
+    assert len(report.errors) == len(refused), report.errors
+    assert report.profile["counters"]["status_writes"] == report.variants_applied == N - 3
 
 
 @pytest.mark.parametrize("outer", [False, True], ids=["alone", "in_a_window"])
