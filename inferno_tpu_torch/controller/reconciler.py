@@ -39,7 +39,14 @@ imports and these changes:
   `reconcile_actuate`, on the cycle's own profile; `reconcile_finish`
   around what `_finish_cycle` does once the profile is sealed, on the
   profiler active around the cycle), and the profile counts
-  `status_writes` and `collect_fallback_variants`. Observation only.
+  `status_writes` and `collect_fallback_variants`. Observation only;
+* a cycle's SLO lookups (`_find_slo`, and `_assemble_variant`'s test for
+  a variant's own model key) answer from one model -> target index per
+  service class object (`_index_targets`), built once after the classes
+  are read and grown with the targets assembly appends, where the
+  reference scans the class's `model_targets` list
+  (`ServiceClassSpec.target_for`) each time: the same first match, in
+  time linear in the variants rather than quadratic.
 """
 
 from __future__ import annotations
@@ -374,6 +381,24 @@ class _Collected:
     # the grouped query missed this variant (or failed), so its metrics
     # came from its own per-variant queries
     fell_back: bool = False
+
+
+# a service class beside its model -> target index
+_ClassTargets = tuple[ServiceClassSpec, dict[str, ModelTarget]]
+
+
+def _index_targets(classes: list[ServiceClassSpec]) -> list[_ClassTargets]:
+    """Each class with a model -> target index of its `model_targets`,
+    in class order. `setdefault` keeps a model's first entry, the one
+    `ServiceClassSpec.target_for`'s scan returns. Keyed per class object:
+    two classes of one name keep an index each."""
+    out = []
+    for sc in classes:
+        targets: dict[str, ModelTarget] = {}
+        for t in sc.model_targets:
+            targets.setdefault(t.model, t)
+        out.append((sc, targets))
+    return out
 
 
 class Reconciler:
@@ -713,19 +738,20 @@ class Reconciler:
     # -- per-VA preparation -------------------------------------------------
 
     def _find_slo(
-        self, classes: list[ServiceClassSpec], va: VariantAutoscaling
+        self, class_targets: list[_ClassTargets], va: VariantAutoscaling
     ) -> tuple[str, ModelTarget] | None:
         """Service class + target for the VA's model. The sloClassRef names
         the preferred class; otherwise first class listing the model wins
         (reference FindModelSLO: internal/utils/utils.go:369-383)."""
         preferred = va.spec.slo_class_ref.key or va.spec.slo_class_ref.name
-        for sc in classes:
+        model = va.spec.model_id
+        for sc, targets in class_targets:
             if sc.name == preferred:
-                t = sc.target_for(va.spec.model_id)
+                t = targets.get(model)
                 if t is not None:
                     return sc.name, t
-        for sc in classes:
-            t = sc.target_for(va.spec.model_id)
+        for sc, targets in class_targets:
+            t = targets.get(model)
             if t is not None:
                 if preferred:
                     # the fallback is reference parity, but silently sizing a
@@ -955,7 +981,7 @@ class Reconciler:
         self,
         c: _Collected,
         va: VariantAutoscaling,
-        classes: list[ServiceClassSpec],
+        class_targets: list[_ClassTargets],
         spec: SystemSpec,
         report: CycleReport,
     ) -> bool:
@@ -1002,12 +1028,13 @@ class Reconciler:
         # per-variant only across namespaces: metrics are queried by
         # (model, namespace), the same granularity as the reference, so
         # same-namespace variants of one model see a blended series.) The
-        # SLO target is duplicated onto the key; `classes` is rebuilt every
-        # cycle.
+        # SLO target is duplicated onto the key, in the class's index too;
+        # the classes and their indexes are rebuilt every cycle.
         model_key = f"{va.spec.model_id}@{va.full_name}"
-        for sc in classes:
-            if sc.name == class_name and sc.target_for(model_key) is None:
-                sc.model_targets.append(dataclasses.replace(target, model=model_key))
+        for sc, targets in class_targets:
+            if sc.name == class_name and model_key not in targets:
+                targets[model_key] = dataclasses.replace(target, model=model_key)
+                sc.model_targets.append(targets[model_key])
 
         # predictive scaling: feed this cycle's observed λ into the
         # forecaster and size scale-UP against max(observed, forecast
@@ -1237,6 +1264,7 @@ class Reconciler:
                 report.optimization_ok = False
                 sp.set(error=str(e))
                 return
+            class_targets = _index_targets(classes)
 
             try:
                 vas = [va for va in self.kube.list_variant_autoscalings() if va.active]
@@ -1320,9 +1348,10 @@ class Reconciler:
         prepared: list[VariantAutoscaling] = []
         with tracer.span("analyze") as sp, _prof.span("reconcile_analyze"):
             # SLO lookup up front on the reconcile thread: _find_slo reads
-            # `classes`, which assembly mutates per variant — workers must
-            # never race that (and the fallback warnings stay ordered)
-            slos = {va.full_name: self._find_slo(classes, va) for va in vas}
+            # the classes' indexes, which assembly mutates per variant —
+            # workers must never race that (and the fallback warnings stay
+            # ordered)
+            slos = {va.full_name: self._find_slo(class_targets, va) for va in vas}
             workers = min(self.config.reconcile_concurrency, max(len(vas), 1))
             self.instruments.observe_collect_concurrency(workers)
             sp.set(collect_concurrency=workers)
@@ -1366,7 +1395,7 @@ class Reconciler:
                     else:
                         c = collected[i]
                         vsp.set(collect_ms=round(c.elapsed_s * 1000.0, 3))
-                    ok = self._assemble_variant(c, va, classes, spec, report)
+                    ok = self._assemble_variant(c, va, class_targets, spec, report)
                     vsp.set(prepared=ok)
                 assemble_s = time.perf_counter() - t0
                 self.instruments.observe_analysis(

@@ -7,9 +7,12 @@ the cycle profiler on and off. On the CPU, 60 variants."""
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import pytest
 
+from inferno_tpu_torch.config.types import ServiceClassSpec
 from inferno_tpu_torch.controller import Reconciler, ReconcilerConfig
 from inferno_tpu_torch.controller.kube import Conflict
 from inferno_tpu_torch.obs import CycleProfiler
@@ -99,6 +102,37 @@ def test_a_grouped_miss_counts_every_variant_that_fell_back():
     assert report.optimization_ok and not report.errors, report.errors[:3]
     assert report.profile["counters"]["collect_fallback_variants"] == N
     assert report.profile["counters"]["status_writes"] == N
+
+
+def test_slo_lookups_do_not_scan_the_class_lists(monkeypatch):
+    """A cycle answers its SLO lookups from its per-class index, never by
+    `ServiceClassSpec.target_for`'s scan of the list (one scan per variant
+    over a class listing every model is quadratic in the fleet), and
+    leaves each class's list as the shipped entries followed by one
+    model-key entry per prepared variant, in variant order."""
+    calls = []
+    scan = ServiceClassSpec.target_for
+    monkeypatch.setattr(ServiceClassSpec, "target_for",
+                        lambda sc, model: calls.append(model) or scan(sc, model))
+    rec, _ = _reconciler()
+    read = rec.read_service_classes
+    shipped = [[dataclasses.replace(t) for t in sc.model_targets] for sc in read()]
+    seen = []
+    rec.read_service_classes = lambda: seen.append(read()) or seen[-1]
+    try:
+        report = rec.run_cycle()
+    finally:
+        rec.close()
+    assert report.optimization_ok and not report.errors, report.errors[:3]
+    assert report.variants_prepared == N
+    assert calls == []
+    (classes,) = seen
+    for sc, entries in zip(classes, shipped, strict=True):
+        first = {t.model: t for t in reversed(entries)}
+        assert sc.model_targets == entries + [
+            dataclasses.replace(first[d.model], model=f"{d.model}@{d.variant}")
+            for d in report.decisions
+        ]
 
 
 @pytest.mark.parametrize("workers", [1, 4])

@@ -30,8 +30,8 @@ from inferno_tpu_torch.controller.crd import (
 from inferno_tpu_torch.controller.kube import KubeError
 from inferno_tpu_torch.controller.promclient import FakeProm
 
-from test_torch_apiserver import CFG_NS, NS, make_cluster, make_prom
-from test_torch_held_cycle import PORT_CPU, held_reconciler
+from test_torch_apiserver import CFG_NS, MODEL, NS, make_cluster, make_prom
+from test_torch_held_cycle import PORT_CPU, assert_decides_as_reference, held_reconciler
 
 
 def reconciler(cluster, prom, **kw):
@@ -351,6 +351,141 @@ def test_shared_model_id_variants_keep_distinct_profiles():
     # the slow profile needs strictly more replicas for the same load; if
     # the registry had last-wins clobbered the profiles they'd be equal
     assert n_slow > n_fast, (n_fast, n_slow)
+
+
+# -- SLO lookup: sloClassRef first, then the first class listing the model ---
+
+
+def _class_doc(name, priority, *entries):
+    """One service-classes ConfigMap document: (model, slo-ttft, slo-tpot)
+    entries in list order."""
+    rows = "".join(f"  - model: {m}\n    slo-ttft: {ttft}\n    slo-tpot: {tpot}\n"
+                   for m, ttft, tpot in entries)
+    return f"name: {name}\npriority: {priority}\ndata:\n{rows}"
+
+
+def _variant(cluster, name, model, class_ref):
+    """A copy of make_cluster()'s variant under another name, model and
+    sloClassRef key, with its Deployment."""
+    import copy
+
+    va = copy.deepcopy(cluster.get_variant_autoscaling(NS, "llama-premium"))
+    va.name, va.spec.model_id = name, model
+    va.spec.slo_class_ref.key = class_ref
+    cluster.add_variant_autoscaling(va)
+    cluster.add_deployment(NS, name, replicas=1)
+
+
+OTHER = "other/model"
+
+
+def _key(model, name):
+    return f"{model}@{name}:{NS}"
+
+
+# classes: ConfigMap key -> document (read in key order); variants: beyond
+# make_cluster()'s llama-premium (MODEL, sloClassRef Premium), as (name,
+# model, sloClassRef key); slos: variant -> the (ttft, itl) it is sized
+# against, None for the "no SLO entry" skip; appended: ConfigMap key -> the
+# (model key, ttft) entries the cycle appends to that class, in variant
+# order; warns: the fallback warning's text, or None
+LOOKUPS = {
+    "ref_lists_model": dict(
+        classes={"a.yaml": _class_doc("Freemium", 10, (MODEL, 2000, 200)),
+                 "b.yaml": _class_doc("Premium", 1, (MODEL, 500, 24))},
+        variants=[], slos={"llama-premium": (500, 24)},
+        appended={"a.yaml": [], "b.yaml": [(_key(MODEL, "llama-premium"), 500)]},
+        warns=None),
+    "ref_lacks_model_falls_back": dict(
+        classes={"a.yaml": _class_doc("Freemium", 10, (MODEL, 2000, 200)),
+                 "b.yaml": _class_doc("Standard", 5, (MODEL, 1000, 50)),
+                 "c.yaml": _class_doc("Premium", 1, (OTHER, 500, 24))},
+        variants=[], slos={"llama-premium": (2000, 200)},
+        appended={"a.yaml": [(_key(MODEL, "llama-premium"), 2000)],
+                  "b.yaml": [], "c.yaml": []},
+        warns=(f"llama-premium:{NS}: sloClassRef 'Premium' matched no class with "
+               f"model {MODEL}; falling back to class 'Freemium'")),
+    "model_listed_twice": dict(
+        classes={"b.yaml": _class_doc("Premium", 1, (MODEL, 500, 24), (MODEL, 2000, 200))},
+        variants=[], slos={"llama-premium": (500, 24)},
+        appended={"b.yaml": [(_key(MODEL, "llama-premium"), 500)]},
+        warns=None),
+    "classes_share_a_name": dict(
+        classes={"a.yaml": _class_doc("Premium", 1, (MODEL, 500, 24)),
+                 "b.yaml": _class_doc("Premium", 5, (MODEL, 2000, 200))},
+        variants=[], slos={"llama-premium": (500, 24)},
+        appended={"a.yaml": [(_key(MODEL, "llama-premium"), 500)],
+                  "b.yaml": [(_key(MODEL, "llama-premium"), 500)]},
+        warns=None),
+    "no_class_lists_model": dict(
+        classes={"a.yaml": _class_doc("Freemium", 10, (OTHER, 2000, 200)),
+                 "b.yaml": _class_doc("Premium", 1, ("another/model", 500, 24))},
+        variants=[("llama-other", OTHER, "Freemium")],
+        slos={"llama-premium": None, "llama-other": (2000, 200)},
+        appended={"a.yaml": [(_key(OTHER, "llama-other"), 2000)], "b.yaml": []},
+        warns=None),
+    "two_variants_of_one_model": dict(
+        classes={"b.yaml": _class_doc("Premium", 1, (MODEL, 500, 24))},
+        variants=[("llama-second", MODEL, "Premium")],
+        slos={"llama-premium": (500, 24), "llama-second": (500, 24)},
+        appended={"b.yaml": [(_key(MODEL, "llama-premium"), 500),
+                             (_key(MODEL, "llama-second"), 500)]},
+        warns=None),
+}
+
+
+@pytest.mark.parametrize("case", LOOKUPS, ids=list(LOOKUPS))
+def test_slo_lookup_matches_the_reference_scan(case, monkeypatch, caplog):
+    """The cycle's SLO lookups answer as the reference's scan of each
+    class's `model_targets`: the sloClassRef's class if it lists the model,
+    else the first class in list order that does (with a warning), else the
+    "no SLO entry" skip; a model's first entry in a class wins; every class
+    of the variant's class name gets the variant's model key appended, in
+    variant order. Decisions, errors and the classes' lists after the
+    cycle are held to the reference's on the same inputs."""
+    spec = LOOKUPS[case]
+    cluster = make_cluster()
+    cluster.set_configmap(CFG_NS, "service-classes-config", spec["classes"])
+    for name, model, class_ref in spec["variants"]:
+        _variant(cluster, name, model, class_ref)
+    rec = reconciler(cluster, make_prom())
+    # each side's classes as the cycle leaves them, and the reference's report
+    seen = {"port": [], "ref": []}
+    for side, target in (("port", rec._port), ("ref", rec._ref)):
+        read = target.read_service_classes
+        monkeypatch.setattr(target, "read_service_classes",
+                            lambda read=read, side=side: seen[side].append(read()) or seen[side][-1])
+    ref_reports = []
+    ref_cycle = rec._ref.run_cycle
+    monkeypatch.setattr(rec._ref, "run_cycle",
+                        lambda: ref_reports.append(ref_cycle()) or ref_reports[-1])
+    monkeypatch.setattr(rec.log, "propagate", True)
+    caplog.set_level("WARNING", logger=rec.log.name)
+
+    report = rec.run_cycle()
+    rec.close()
+
+    assert_decides_as_reference(report, ref_reports[0])
+    assert report.errors == ref_reports[0].errors
+    assert rec.held_cycles == (0 if report.errors else 1)
+    sized = {d.name: (d.slo_ttft_ms, d.slo_itl_ms) for d in report.decisions}
+    for name, slo in spec["slos"].items():
+        if slo is None:
+            assert f"{name}:{NS}: no SLO entry for model {MODEL}" in report.errors
+        else:
+            assert sized[name] == slo, (name, sized)
+    assert report.variants_prepared == sum(s is not None for s in spec["slos"].values())
+    warnings = [r.getMessage() for r in caplog.records if r.name == rec.log.name
+                and "sloClassRef" in r.getMessage()]
+    assert warnings == ([spec["warns"]] if spec["warns"] else [])
+
+    (port_classes,), (ref_classes,) = seen["port"], seen["ref"]
+    for sc, key in zip(port_classes, sorted(spec["classes"]), strict=True):
+        shipped = spec["classes"][key].count("- model: ")
+        assert [(t.model, t.slo_ttft) for t in sc.model_targets[shipped:]] == \
+            spec["appended"][key], key
+    assert [[t.to_dict() for t in sc.model_targets] for sc in port_classes] == \
+        [[t.to_dict() for t in sc.model_targets] for sc in ref_classes]
 
 
 def test_run_forever_soak_with_gate_flaps_and_pokes():
