@@ -1013,6 +1013,68 @@ def candidate_order(
     return order, s_sorted, starts, bounds, order2
 
 
+def _current_basis(servers, acc_order: dict) -> tuple[np.ndarray, ...]:
+    """The transition basis of each server, in the order given: the
+    (accelerator rank, cost, replicas) columns of its current allocation.
+    Rank -1 for no allocation ("" never equals a lane's accelerator) or
+    one outside the catalog; replicas -1 only where there is no server."""
+    n = len(servers)
+    rank = np.full(n, -1, np.int64)
+    cost = np.zeros(n, np.float64)
+    reps = np.full(n, -1, np.int64)
+    for i, server in enumerate(servers):
+        cur = server.cur_allocation
+        if cur.accelerator:
+            rank[i] = acc_order.get(cur.accelerator, -1)
+        cost[i] = cur.cost
+        reps[i] = cur.num_replicas
+    return rank, cost, reps
+
+
+def _transition_value(same, reps, creps, cost64, ccost, premium=None):
+    """THE candidate objective, elementwise in f64 and broadcasting (the
+    per-cycle lanes, the planner's [rows, L] slabs): the transition
+    penalty from the current allocation (`same`: on its accelerator;
+    `creps`/`ccost`: its replicas and cost) to a lane of `reps` replicas
+    at `cost64` (spot discount already off), plus the spot tier's risk
+    `premium` where there is one.
+
+    The scalar formula's exact operation order, so the per-server argmin
+    agrees bit for bit with `core/allocation.py::transition_penalty` plus
+    `Allocation.spot_premium` (tests/test_torch_writeback.py) and with
+    `ops/csrc/plan_rows_kernel.cu`, which takes ACCEL_PENALTY_FACTOR as
+    an argument (tests/test_torch_plan_rows_kernel.py,
+    tests/test_torch_vectorized_sizing.py)."""
+    value = np.where(
+        same & (reps == creps),
+        0.0,
+        np.where(
+            same,
+            cost64 - ccost,
+            ACCEL_PENALTY_FACTOR * (ccost + cost64) + (cost64 - ccost),
+        ),
+    )
+    return value if premium is None else value + premium
+
+
+def _spot_terms(reps, total, rate_star, cost64, cpr64, spot):
+    """The spot tier's lane terms: the load-required replicas (the sizing's
+    f32 fold at min_replicas = 0 over the offered load `total`; replicas
+    above them are storm-safe SLO headroom), the split of `reps` over the
+    tier (`spot.market.spot_split` with the per-lane rank columns `spot`:
+    discount, blast, premium, eligible), and the discount taken off
+    `cost64` BEFORE the transition penalty (the scalar path's apply_spot
+    -> Server.calculate order).
+
+    Returns ((cost64 discounted, spot_reps, discount, premium, trimmed),
+    required): the first is the `_LaneSource` spot tuple."""
+    from inferno_tpu_torch.spot.market import spot_split
+
+    required = fold_replicas(total, rate_star, np.int32(0), np)
+    spot_k, disc, prem, trimmed = spot_split(reps, required, cpr64, *spot)
+    return (cost64 - disc, spot_k, disc, prem, trimmed), required
+
+
 @dataclasses.dataclass
 class FleetCandidates:
     """Columnar per-server candidate table for the capacity-constrained
@@ -1041,15 +1103,76 @@ class FleetCandidates:
         return len(self.server)
 
 
+class _CandidateTable:
+    """The feasible lanes of one writeback in THE candidate order
+    (`candidate_order`, run once): the full pass, the incremental
+    writeback and the incremental path's lazy `FleetCandidates` all build
+    theirs here.
+
+    `cat` holds one tuple per lane kind: (kind id, lane or row ids,
+    server position, accelerator rank, value, cost, replicas, chips per
+    replica, spot replicas or None). `firsts` is each server segment's
+    winning row (in the concatenated columns), `seg_server` its server."""
+
+    __slots__ = ("src", "kind", "lane", "rank", "value", "cost", "reps", "chips",
+                 "spot_reps", "order", "s_sorted", "bounds", "order2", "firsts",
+                 "seg_server")
+
+    def __init__(self, src: _LaneSource, cat: list[tuple], materialization: bool = True):
+        self.src = src
+        self.kind = np.concatenate(
+            [np.full(len(c[1]), c[0], np.int64) for c in cat])
+        self.spot_reps = np.concatenate(
+            [np.zeros(len(c[1]), np.int64) if c[8] is None else c[8] for c in cat])
+        (
+            self.lane, sidx, self.rank, self.value, self.cost, self.reps,
+            self.chips,
+        ) = (np.concatenate(parts) for parts in list(zip(*cat))[1:8])
+        self.order, self.s_sorted, starts, self.bounds, self.order2 = candidate_order(
+            sidx, self.value, self.cost, self.rank, materialization)
+        self.firsts = self.order[starts]
+        self.seg_server = self.s_sorted[starts]
+
+    def allocations(self):
+        """(server position, LaneAllocations) per server segment: entries
+        in the stable by-server materialization order, the segment's
+        winner as the precomputed best."""
+        kinds, lanes = self.kind[self.order2], self.lane[self.order2]
+        bounds = self.bounds.tolist()
+        for pos, a, b, k, lane in zip(
+            self.seg_server.tolist(), bounds[:-1], bounds[1:],
+            self.kind[self.firsts].tolist(), self.lane[self.firsts].tolist(),
+        ):
+            yield pos, LaneAllocations(self.src, kinds[a:b], lanes[a:b], (k, lane))
+
+    def candidates(self) -> FleetCandidates:
+        """The capacity-constrained solver's columnar input: the sorted
+        segments the per-server argmin consumed, one row per lane."""
+        o = self.order
+        return FleetCandidates(
+            src=self.src, server=self.s_sorted, kind=self.kind[o],
+            lane=self.lane[o], value=self.value[o], cost=self.cost[o],
+            reps=self.reps[o], chips=self.chips[o], rank=self.rank[o],
+            spot_reps=self.spot_reps[o], bounds=self.bounds,
+            seg_server=self.seg_server,
+        )
+
+
 def _incremental_enabled() -> bool:
     return env_flag("INCREMENTAL_CYCLE", True)
 
 
-def _zero_load_dict(system: System, server) -> dict[str, Allocation] | None:
+def _zero_load_dict(
+    system: System, server, current: Allocation | None = None,
+) -> dict[str, Allocation] | None:
     """Closed-form zero-load candidate set for one server (the scalar
     shortcut): None when the server has no model/class/target, else
     dict[acc, Allocation] with the scalar op order — spot discount first,
-    transition penalty on the discounted price, plus the risk premium."""
+    transition penalty on the discounted price, plus the risk premium.
+    The penalty's basis is `current`, by default the server's current
+    allocation (the planner passes the one its prep pinned)."""
+    if current is None:
+        current = server.cur_allocation
     model = system.models.get(server.model_name)
     svc = system.service_classes.get(server.service_class_name)
     if model is None or svc is None or svc.target_for(server.model_name) is None:
@@ -1063,10 +1186,7 @@ def _zero_load_dict(system: System, server) -> dict[str, Allocation] | None:
         _apply_spot(
             system, alloc, acc.cost * model.slices_per_replica(acc.name), 0,
         )
-        alloc.value = (
-            transition_penalty(server.cur_allocation, alloc)
-            + alloc.spot_premium
-        )
+        alloc.value = transition_penalty(current, alloc) + alloc.spot_premium
         out[acc.name] = alloc
     return out
 
@@ -1221,23 +1341,17 @@ def _calculate_fleet(
     # content-addressed through the snapshot)
     incremental.reset_state_for(system)
 
+    # zero-load shortcut (scalar, closed-form, no queue solve needed);
+    # loaded servers' candidates come from the batched path below
     for name, server in system.servers.items():
         if only is not None and name not in only:
             continue  # sizing-cache replay already populated these
         server.all_allocations = {}
-
-    # zero-load shortcut (scalar, closed-form, no queue solve needed)
-    for name, server in system.servers.items():
-        if only is not None and name not in only:
-            continue
         load = server.load
         if load is None or load.arrival_rate < 0:
             continue
-        if not (load.arrival_rate == 0 or load.avg_out_tokens == 0):
-            continue  # loaded servers go through the batched path
-        allocs = _zero_load_dict(system, server)
-        if allocs:
-            server.all_allocations = allocs
+        if load.arrival_rate == 0 or load.avg_out_tokens == 0:
+            server.all_allocations = _zero_load_dict(system, server) or {}
 
     known = None
     if _snapshot_enabled():
@@ -1257,17 +1371,9 @@ def _calculate_fleet(
     # -- vectorized writeback (host numpy, f64): per-lane transition
     # penalties, per-server candidate argmin, lazy Allocation views ---------
     names = list(system.servers)
+    servers_list = list(system.servers.values())
     acc_order = {a: i for i, a in enumerate(sorted(system.accelerators))}
-    n_srv = len(names)
-    cur_rank = np.full(n_srv, -1, np.int64)
-    cur_cost = np.zeros(n_srv, np.float64)
-    cur_reps = np.full(n_srv, -1, np.int64)
-    for i, server in enumerate(system.servers.values()):
-        cur = server.cur_allocation
-        if cur.accelerator:  # "" (no allocation) never equals a lane acc
-            cur_rank[i] = acc_order.get(cur.accelerator, -1)
-        cur_cost[i] = cur.cost
-        cur_reps[i] = cur.num_replicas
+    cur_rank, cur_cost, cur_reps = _current_basis(servers_list, acc_order)
 
     # spot tier: per-rank economics columns, resolved once per cycle
     # (spot/market.py); None keeps every lane on the pre-spot path
@@ -1279,9 +1385,7 @@ def _calculate_fleet(
 
     n = 0
     src = _LaneSource()
-    # (sidx, rank, value, cost, reps, chips, spot_k, kind, lane) per
-    # feasible lane
-    cat: list[tuple[np.ndarray, ...]] = []
+    cat: list[tuple] = []  # feasible lanes per kind, as `_CandidateTable` takes
     kinds = []
     if plan is not None and result is not None:
         kinds.append((0, plan, result, np.asarray(plan.params.max_batch)))
@@ -1295,97 +1399,37 @@ def _calculate_fleet(
         reps = np.asarray(res.num_replicas, np.int64)
         spot = None
         if spot_cols is not None:
-            from inferno_tpu_torch.spot.market import spot_split
-
-            # load-required replicas (min-replica floor excluded): the
-            # same f32 fold the sizing ran, at min_replicas = 0 —
-            # replicas above this are storm-safe SLO headroom
             total = offered_load(
                 np.asarray(p.params.total_rate, np.float32),
                 np.asarray(p.params.target_tps, np.float32),
                 np.asarray(p.params.out_tokens, np.float32),
                 np,
             )
-            required = fold_replicas(
-                total, np.asarray(res.rate_star, np.float32), np.int32(0), np
-            )
-            spot_k, disc, prem, trimmed = spot_split(
-                reps, required,
+            spot, _ = _spot_terms(
+                reps, total, np.asarray(res.rate_star, np.float32), cost64,
                 np.asarray(p.params.cost_per_replica, np.float64),
-                spot_cols[0][rank], spot_cols[1][rank],
-                spot_cols[2][rank], spot_cols[3][rank],
+                tuple(col[rank] for col in spot_cols),
             )
-            # discount lands on the cost BEFORE the transition penalty
-            # (the scalar path's apply_spot -> Server.calculate order)
-            cost64 = cost64 - disc
-            spot = (cost64, spot_k, disc, prem, trimmed)
-        same_acc = rank == cur_rank[sidx]
-        ccost = cur_cost[sidx]
-        # transition_penalty(), elementwise in f64 with the scalar
-        # formula's exact operation order — the argmin below must agree
-        # bit-for-bit with the per-lane Python path it replaces
-        value = np.where(
-            same_acc & (reps == cur_reps[sidx]),
-            0.0,
-            np.where(
-                same_acc,
-                cost64 - ccost,
-                ACCEL_PENALTY_FACTOR * (ccost + cost64) + (cost64 - ccost),
-            ),
+            cost64 = spot[0]
+        value = _transition_value(
+            rank == cur_rank[sidx], reps, cur_reps[sidx], cost64, cur_cost[sidx],
+            None if spot is None else spot[3],
         )
-        if spot is not None:
-            # risky-spot premium rides the objective, not the price
-            value = value + spot[3]
         src.add(LaneAllocations._KIND[kind_id], p, res, value, batches, spot)
         fe = np.asarray(res.feasible, bool)
         if fe.any():
-            spot_k_fe = (
-                spot[1][fe] if spot is not None
-                else np.zeros(int(fe.sum()), np.int64)
-            )
             cat.append((
-                sidx[fe], rank[fe], value[fe], cost64[fe],
-                reps[fe], np.asarray(chips, np.int64)[fe], spot_k_fe,
-                np.full(int(fe.sum()), kind_id, np.int64), np.flatnonzero(fe),
+                kind_id, np.flatnonzero(fe), sidx[fe], rank[fe], value[fe],
+                cost64[fe], reps[fe], np.asarray(chips, np.int64)[fe],
+                None if spot is None else spot[1][fe],
             ))
     if not cat:
         return n
 
-    (
-        sidx_all, rank_all, val_all, cost_all,
-        reps_all, chips_all, spot_all, kind_all, lane_all,
-    ) = (np.concatenate(parts) for parts in zip(*cat))
-    # per-server segment-argmin with the deterministic tie-break
-    # (value, cost, accelerator rank) — mirrors solve_unlimited's scalar key;
-    # materialization order = one stable grouping by server
-    order, s_sorted, starts, bounds, order2 = candidate_order(
-        sidx_all, val_all, cost_all, rank_all
-    )
-    kinds_sorted = kind_all[order2]
-    lanes_sorted = lane_all[order2]
-    servers_list = list(system.servers.values())
-    for a, b in zip(bounds[:-1], bounds[1:]):
-        first = order[a]
-        servers_list[s_sorted[a]].all_allocations = LaneAllocations(
-            src, kinds_sorted[a:b], lanes_sorted[a:b],
-            (int(kind_all[first]), int(lane_all[first])),
-        )
-    # the capacity-constrained solver's columnar input: the same sorted
-    # segments the argmin above consumed, one row per feasible lane
-    system.fleet_candidates = FleetCandidates(
-        src=src,
-        server=s_sorted,
-        kind=kind_all[order],
-        lane=lane_all[order],
-        value=val_all[order],
-        cost=cost_all[order],
-        reps=reps_all[order],
-        chips=chips_all[order],
-        rank=rank_all[order],
-        spot_reps=spot_all[order],
-        bounds=bounds,
-        seg_server=s_sorted[starts],
-    )
+    table = _CandidateTable(src, cat)
+    for pos, allocs in table.allocations():
+        servers_list[pos].all_allocations = allocs
+    system.fleet_candidates = table.candidates()
     return n
 # -- batched time-axis / seed-ensemble solve (the offline planner's core) -----
 
@@ -1657,20 +1701,8 @@ class FleetBatchPrep:
         acc_order = {a: i for i, a in enumerate(acc_names)}
         n_srv = self.n_servers
 
-        # current-allocation columns: the transition-penalty basis,
-        # identical to the per-cycle writeback's
-        cur_rank = np.full(n_srv, -1, np.int64)
-        cur_cost = np.zeros(n_srv, np.float64)
-        cur_reps = np.full(n_srv, -1, np.int64)
-        for i, server in enumerate(servers_list):
-            cur = server.cur_allocation
-            if cur.accelerator:
-                cur_rank[i] = acc_order.get(cur.accelerator, -1)
-            cur_cost[i] = cur.cost
-            cur_reps[i] = cur.num_replicas
-        self._cur_rank, self._cur_cost, self._cur_reps = (
-            cur_rank, cur_cost, cur_reps,
-        )
+        # the transition basis, the per-cycle writeback's
+        cur_rank, cur_cost, cur_reps = _current_basis(servers_list, acc_order)
         # the zero-load table is built lazily (below) but must share
         # THIS transition basis: pin the current-allocation objects now
         # so a prep reused across cycles — where a reconcile replaces
@@ -1801,12 +1833,14 @@ class FleetBatchPrep:
     # -- zero-load shortcut table ---------------------------------------------
 
     def _ensure_zero_table(self):
-        """Closed-form zero-load columns, built once on first need:
-        mirrors calculate_fleet's shortcut loop + the solve_unlimited
-        (value, cost, accelerator) scan — the live zero shortcut's op
-        order (discount, penalty on the discounted price, premium)."""
+        """Closed-form zero-load columns, built once on first need: each
+        server's `_zero_load_dict` over the transition basis pinned at
+        __init__ (the sized lanes' basis), its pick under the solvers'
+        (value, cost, accelerator) key."""
         if self._zero_table is not None:
             return self._zero_table
+        from inferno_tpu_torch.solver.greedy import candidate_sort_key
+
         system = self.system
         n_srv = self.n_servers
         acc_order = {a: i for i, a in enumerate(self.accelerators)}
@@ -1819,36 +1853,12 @@ class FleetBatchPrep:
         for i, server in enumerate(system.servers.values()):
             if not self._has_load[i]:
                 continue
-            model = system.models.get(server.model_name)
-            svc = system.service_classes.get(server.service_class_name)
-            if (
-                model is None
-                or svc is None
-                or svc.target_for(server.model_name) is None
-            ):
-                continue
-            best = best_key = None
-            for acc in server.candidate_accelerators(system).values():
-                perf = model.perf_data.get(acc.name)
-                if perf is None:
-                    continue
-                alloc = _zero_load_allocation(server, model, acc, perf)
-                _apply_spot(
-                    system, alloc,
-                    acc.cost * model.slices_per_replica(acc.name), 0,
-                )
-                # transition basis = the allocation pinned at __init__,
-                # the same snapshot the sized lanes' cur columns carry
-                alloc.value = (
-                    transition_penalty(self._cur_allocs[i], alloc)
-                    + alloc.spot_premium
-                )
-                key = (alloc.value, alloc.cost, alloc.accelerator)
-                if best is None or key < best_key:
-                    best, best_key = alloc, key
+            d = _zero_load_dict(system, server, self._cur_allocs[i])
+            best = min(d.values(), key=candidate_sort_key) if d else None
             if best is not None and best.accelerator:
                 zero_choice[i] = acc_order[best.accelerator]
                 zero_reps[i] = best.num_replicas
+                model = system.models[server.model_name]
                 zero_chips[i] = best.num_replicas * model.slices_per_replica(
                     best.accelerator
                 ) * system.accelerators[best.accelerator].chips
@@ -1876,9 +1886,10 @@ class FleetBatchPrep:
         """Solve one [rows, S] rate slab on the host into the prefilled
         `out` views (only keys in `needs` — plus the spot columns when the
         tier is on — exist). Returns (lane_reps, zmask) for streaming
-        consumers. The arithmetic and operation order are EXACTLY the
-        per-cycle writeback's (tests/test_planner.py pins serial parity),
-        and `plan_rows_kernel.cu`'s."""
+        consumers. The objective and the spot terms are the per-cycle
+        writeback's own functions (`_transition_value`, `_spot_terms`;
+        tests/test_torch_planner.py pins serial parity), and the
+        arithmetic is `plan_rows_kernel.cu`'s."""
         reps = None
         zmask = None
         if self.n_lanes:
@@ -1897,8 +1908,8 @@ class FleetBatchPrep:
             if self._tps_bound:
                 total = offered_load(total, self._l_tps, self._l_out, np)
             spot_on = self.spot_on
-            # `total` is a fresh gather; unless the spot pass still
-            # needs it (the required-replica fold), lend it to the fold
+            # `total` is a fresh gather; unless the spot terms still
+            # need it (the required-replica fold), lend it to the fold
             # as the quotient scratch buffer
             reps = fold_replicas(
                 total, self._l_rate_star, self._l_min_reps, np,
@@ -1917,33 +1928,17 @@ class FleetBatchPrep:
                 np.multiply(cost32, self._l_cpr, out=cost32)
                 cost64 = cost32.astype(np.float64)
                 if spot_on:
-                    from inferno_tpu_torch.spot.market import spot_split
-
-                    # the per-cycle writeback's spot pass, over the whole
-                    # chunk: required replicas at min_replicas = 0, the
-                    # split, discount off the cost BEFORE the penalty
-                    required = fold_replicas(
-                        total, self._l_rate_star, np.int32(0), np
+                    # the per-cycle writeback's spot terms, over the chunk
+                    (cost64, spot_k, _, prem, _), required = _spot_terms(
+                        reps, total, self._l_rate_star, cost64,
+                        self._l_cpr64, self._l_spot,
                     )
-                    spot_k, disc, prem, _ = spot_split(
-                        reps, required, self._l_cpr64, *self._l_spot,
-                    )
-                    cost64 = cost64 - disc
                     cost32 = cost64.astype(np.float32)
             if need_value:
-                # transition_penalty(), same f64 op order as the writeback
-                value = np.where(
-                    self._l_same & (reps == self._l_creps),
-                    0.0,
-                    np.where(
-                        self._l_same,
-                        cost64 - self._l_ccost,
-                        ACCEL_PENALTY_FACTOR * (self._l_ccost + cost64)
-                        + (cost64 - self._l_ccost),
-                    ),
+                value = _transition_value(
+                    self._l_same, reps, self._l_creps, cost64, self._l_ccost,
+                    prem if spot_on else None,
                 )
-                if spot_on:
-                    value = value + prem
             seg = self.seg_server
             if self.all_seg1:
                 # one lane per segment: the winner IS the lane (the

@@ -9,7 +9,8 @@ snapshot's change detection from *cache-hit* into *skip-entirely*:
   VALUE / RATE / FULL tiers (parallel/snapshot.py);
 * persistent **static-row-aligned result tables** hold the last solved
   FleetResult columns, transition-penalty values, spot splits, and the
-  per-server [servers] choice/replica/cost columns;
+  per-server [servers] preferred-candidate columns the capacity solve's
+  bulk replay charges;
 * dirty lanes run as a **gathered** pass — FULL lanes through the full
   sizing kernel, RATE lanes through the cheap refold kernel
   (`ops.queueing.fleet_refold` / `tandem_refold`: the bisection is
@@ -49,8 +50,6 @@ import dataclasses
 
 import numpy as np
 
-from inferno_tpu_torch.config.defaults import ACCEL_PENALTY_FACTOR
-
 # cycle-profiler hooks (obs/profiler.py): thread-local no-ops unless a
 # profiler is active; observation only
 from inferno_tpu_torch.obs import profiler as _prof
@@ -59,7 +58,6 @@ from inferno_tpu_torch.ops.queueing import (
     FleetParams,
     FleetResult,
     TandemParams,
-    fold_replicas,
     offered_load,
 )
 from inferno_tpu_torch.parallel.snapshot import (
@@ -128,8 +126,7 @@ class _State:
 
     __slots__ = (
         "names", "structure_version", "backend", "device", "mesh", "kinds", "source",
-        "la", "choice", "replicas", "cost", "value",
-        "pref_rank", "pref_reps", "pref_spot", "pref_chips",
+        "la", "pref_rank", "pref_reps", "pref_spot", "pref_chips",
         "applied_system", "solve_system", "greedy", "force_full",
         "cands", "cands_system", "la_complete",
     )
@@ -206,10 +203,6 @@ def _new_state(snap, names, backend, device, mesh) -> _State:
     st.mesh = mesh
     n = len(names)
     st.la = [None] * n
-    st.choice = np.full(n, -1, np.int64)
-    st.replicas = np.zeros(n, np.int64)
-    st.cost = np.zeros(n, np.float64)
-    st.value = np.zeros(n, np.float64)
     st.pref_rank = np.full(n, -1, np.int64)
     st.pref_reps = np.zeros(n, np.int64)
     st.pref_spot = np.zeros(n, np.int64)
@@ -464,7 +457,7 @@ def incremental_cycle(
                 cw_cost[j] = cost
                 cw_reps[j] = reps
 
-            cat: list[tuple[np.ndarray, ...]] = []
+            cat: list[tuple] = []  # feasible rows per kind, as F._CandidateTable takes
             for kind_id, kind_name in enumerate(_KIND_NAMES):
                 kt = snap.kind_table(kind_name)
                 t = st.kinds[kind_name]
@@ -474,110 +467,63 @@ def incremental_cycle(
                 reps64 = t.res.num_replicas[rows].astype(np.int64)
                 cost64 = t.res.cost[rows].astype(np.float64)
                 rank_rows = kt.cols["acc_rank"][rows].astype(np.int64)
-                spot_rows = None
+                spot = None
                 if spot_cols is not None:
-                    from inferno_tpu_torch.spot.market import spot_split
-
                     cols = snap.columns(kind_name, rows)
                     total = offered_load(
                         cols["total_rate"], cols["target_tps"], cols["out_tokens"], np
                     )
-                    required = fold_replicas(
-                        total, t.res.rate_star[rows], np.int32(0), np
-                    )
-                    spot_k, disc, prem, trimmed = spot_split(
-                        reps64, required,
+                    spot, _ = F._spot_terms(
+                        reps64, total, t.res.rate_star[rows], cost64,
                         cols["cost_per_replica"].astype(np.float64),
-                        spot_cols[0][rank_rows], spot_cols[1][rank_rows],
-                        spot_cols[2][rank_rows], spot_cols[3][rank_rows],
+                        tuple(col[rank_rows] for col in spot_cols),
                     )
-                    cost64 = cost64 - disc
-                    sp = t.ensure_spot(len(t.valid))
-                    sp[0][rows] = cost64
-                    sp[1][rows] = spot_k
-                    sp[2][rows] = disc
-                    sp[3][rows] = prem
-                    sp[4][rows] = trimmed
-                    spot_rows = (spot_k, prem)
+                    cost64 = spot[0]
+                    for dst, src in zip(t.ensure_spot(len(t.valid)), spot):
+                        dst[rows] = src
                     st.source.spot[kind_name] = t.spot
                 li = inv[kt.lane_server[rows]]
-                same = rank_rows == cw_rank[li]
-                ccost = cw_cost[li]
-                value = np.where(
-                    same & (reps64 == cw_reps[li]),
-                    0.0,
-                    np.where(
-                        same,
-                        cost64 - ccost,
-                        ACCEL_PENALTY_FACTOR * (ccost + cost64) + (cost64 - ccost),
-                    ),
+                value = F._transition_value(
+                    rank_rows == cw_rank[li], reps64, cw_reps[li], cost64, cw_cost[li],
+                    None if spot is None else spot[3],
                 )
-                if spot_rows is not None:
-                    value = value + spot_rows[1]
                 t.value[rows] = value
                 t.cost64[rows] = cost64
                 fe = t.res.feasible[rows]
                 if fe.any():
                     rf = rows[fe]
                     cat.append((
-                        kt.lane_server[rf], rank_rows[fe], value[fe], cost64[fe],
-                        t.res.num_replicas[rf].astype(np.int64),
+                        kind_id, rf, kt.lane_server[rf], rank_rows[fe], value[fe],
+                        cost64[fe], t.res.num_replicas[rf].astype(np.int64),
                         kt.cols["chips_per_replica"][rf].astype(np.int64),
-                        (spot_rows[0][fe] if spot_rows is not None
-                         else np.zeros(int(fe.sum()), np.int64)),
-                        np.full(int(fe.sum()), kind_id, np.int64), rf,
+                        None if spot is None else spot[1][fe],
                     ))
 
             covered = np.zeros(n_srv, bool)
             if cat:
-                (
-                    sidx_a, rank_a, val_a, cost_a, reps_a, chips_a,
-                    spot_a, kind_a, row_a,
-                ) = (np.concatenate(parts) for parts in zip(*cat))
-                order, s_sorted, starts, bounds, order2 = F.candidate_order(
-                    sidx_a, val_a, cost_a, rank_a
-                )
-                kinds_sorted = kind_a[order2]
-                rows_sorted = row_a[order2]
-                firsts = order[starts]
-                seg_pos = s_sorted[starts]
+                table = F._CandidateTable(st.source, cat)
+                firsts, seg_pos = table.firsts, table.seg_server
                 covered[seg_pos] = True
-                st.choice[seg_pos] = rank_a[firsts]
-                st.replicas[seg_pos] = reps_a[firsts]
-                st.cost[seg_pos] = cost_a[firsts]
-                st.value[seg_pos] = val_a[firsts]
-                st.pref_rank[seg_pos] = rank_a[firsts]
-                st.pref_reps[seg_pos] = reps_a[firsts]
-                st.pref_spot[seg_pos] = spot_a[firsts]
-                st.pref_chips[seg_pos] = chips_a[firsts]
-                for a, b in zip(bounds[:-1], bounds[1:]):
-                    first = order[a]
-                    st.la[s_sorted[a]] = F.LaneAllocations(
-                        st.source, kinds_sorted[a:b], rows_sorted[a:b],
-                        (int(kind_a[first]), int(row_a[first])),
-                    )
+                st.pref_rank[seg_pos] = table.rank[firsts]
+                st.pref_reps[seg_pos] = table.reps[firsts]
+                st.pref_spot[seg_pos] = table.spot_reps[firsts]
+                st.pref_chips[seg_pos] = table.chips[firsts]
+                for pos, allocs in table.allocations():
+                    st.la[pos] = allocs
             # dirty servers without a feasible lane: zero-load dict (built
-            # above) or genuinely empty — per-server columns from the dict
+            # above) or genuinely empty — per-server columns from its pick
             from inferno_tpu_torch.solver.greedy import _chips_per_replica, candidate_sort_key
 
             for pos in wb_pos[~covered[wb_pos]].tolist():
                 d = st.la[pos]
                 best = min(d.values(), key=candidate_sort_key) if d else None
                 if best is None or not best.accelerator:
-                    st.choice[pos] = -1
-                    st.replicas[pos] = 0
-                    st.cost[pos] = 0.0
-                    st.value[pos] = 0.0
                     st.pref_rank[pos] = -1
                     st.pref_reps[pos] = 0
                     st.pref_spot[pos] = 0
                     st.pref_chips[pos] = 0
                     continue
-                st.choice[pos] = acc_order.get(best.accelerator, -1)
-                st.replicas[pos] = best.num_replicas
-                st.cost[pos] = best.cost
-                st.value[pos] = best.value
-                st.pref_rank[pos] = st.choice[pos]
+                st.pref_rank[pos] = acc_order.get(best.accelerator, -1)
                 st.pref_reps[pos] = best.num_replicas
                 st.pref_spot[pos] = best.spot_replicas
                 pc = _chips_per_replica(system, names[pos], best)
@@ -629,50 +575,25 @@ def _build_candidates(system):
     if st.cands is not None and st.cands_system is system:
         return st.cands
     snap = F._get_snapshot()
-    cat: list[tuple[np.ndarray, ...]] = []
+    cat: list[tuple] = []
     for kind_id, kind_name in enumerate(_KIND_NAMES):
         kt = snap.kind_table(kind_name)
         t = st.kinds[kind_name]
         if kt.mask is None or not len(kt.mask):
             continue
-        fe = kt.mask & t.valid & t.res.feasible
-        rows = np.flatnonzero(fe)
+        rows = np.flatnonzero(kt.mask & t.valid & t.res.feasible)
         if not len(rows):
             continue
         cat.append((
-            kt.lane_server[rows],
-            kt.cols["acc_rank"][rows].astype(np.int64),
-            t.value[rows],
-            t.cost64[rows],
-            t.res.num_replicas[rows].astype(np.int64),
+            kind_id, rows, kt.lane_server[rows],
+            kt.cols["acc_rank"][rows].astype(np.int64), t.value[rows],
+            t.cost64[rows], t.res.num_replicas[rows].astype(np.int64),
             kt.cols["chips_per_replica"][rows].astype(np.int64),
-            (t.spot[1][rows] if t.spot is not None
-             else np.zeros(len(rows), np.int64)),
-            np.full(len(rows), kind_id, np.int64),
-            rows,
+            None if t.spot is None else t.spot[1][rows],
         ))
     if not cat:
         return None
-    (
-        sidx_a, rank_a, val_a, cost_a, reps_a, chips_a, spot_a, kind_a, row_a,
-    ) = (np.concatenate(parts) for parts in zip(*cat))
-    order, s_sorted, starts, bounds, _ = F.candidate_order(
-        sidx_a, val_a, cost_a, rank_a, materialization=False
-    )
-    cands = F.FleetCandidates(
-        src=st.source,
-        server=s_sorted,
-        kind=kind_a[order],
-        lane=row_a[order],
-        value=val_a[order],
-        cost=cost_a[order],
-        reps=reps_a[order],
-        chips=chips_a[order],
-        rank=rank_a[order],
-        spot_reps=spot_a[order],
-        bounds=bounds,
-        seg_server=s_sorted[starts],
-    )
+    cands = F._CandidateTable(st.source, cat, materialization=False).candidates()
     st.cands = cands
     st.cands_system = system
     return cands
