@@ -39,14 +39,20 @@ imports and these changes:
   `reconcile_actuate`, on the cycle's own profile; `reconcile_finish`
   around what `_finish_cycle` does once the profile is sealed, on the
   profiler active around the cycle), and the profile counts
-  `status_writes` and `collect_fallback_variants`. Observation only;
+  `status_writes`, `collect_fallback_variants`,
+  `service_class_docs_parsed` and `service_class_docs_reused`.
+  Observation only;
 * a cycle's SLO lookups (`_find_slo`, and `_assemble_variant`'s test for
   a variant's own model key) answer from one model -> target index per
   service class object (`_index_targets`), built once after the classes
   are read and grown with the targets assembly appends, where the
   reference scans the class's `model_targets` list
   (`ServiceClassSpec.target_for`) each time: the same first match, in
-  time linear in the variants rather than quadratic.
+  time linear in the variants rather than quadratic;
+* `read_service_classes` parses a key of the service-classes ConfigMap
+  only when its text differs from the last read's, and otherwise reuses
+  that parse (the name, the priority and the frozen targets), returning
+  new classes with new target lists each call.
 """
 
 from __future__ import annotations
@@ -401,6 +407,31 @@ def _index_targets(classes: list[ServiceClassSpec]) -> list[_ClassTargets]:
     return out
 
 
+# one service-classes document, parsed: name, priority and its targets
+_ClassDoc = tuple[str, int, tuple[ModelTarget, ...]]
+
+
+def _parse_class_doc(raw: str) -> _ClassDoc | None:
+    """One service-classes ConfigMap value; None for a document the read
+    skips (not YAML, not a mapping, or no `name`)."""
+    try:
+        doc = yaml.safe_load(raw)
+    except yaml.YAMLError:
+        return None
+    if not isinstance(doc, dict) or "name" not in doc:
+        return None
+    targets = tuple(
+        ModelTarget(
+            model=str(entry.get("model", "")),
+            slo_itl=float(entry.get("slo-tpot", 0) or 0),
+            slo_ttft=float(entry.get("slo-ttft", 0) or 0),
+            slo_tps=float(entry.get("slo-tps", 0) or 0),
+        )
+        for entry in doc.get("data", []) or []
+    )
+    return str(doc["name"]), int(doc.get("priority", 100) or 100), targets
+
+
 class Reconciler:
     def __init__(
         self,
@@ -554,6 +585,10 @@ class Reconciler:
         # the SystemSpec the in-flight cycle's solve consumed, stashed
         # for the recorder (reconcile thread only; cleared per cycle)
         self._cycle_spec = None
+        # service-classes ConfigMap key -> (its text, what the text parsed
+        # to) as the last read saw them; a key whose text is unchanged
+        # reuses its parse (read_service_classes; reconcile thread only)
+        self._class_docs: dict[str, tuple[str, _ClassDoc | None]] = {}
         # persistent worker pool shared by the collect and apply stages
         # (reconcile_concurrency > 1 only; lazily created, kept across
         # cycles). Tearing a pool down every cycle would kill the worker
@@ -644,33 +679,30 @@ class Reconciler:
 
     def read_service_classes(self) -> list[ServiceClassSpec]:
         """YAML documents, one per ConfigMap key
-        (reference shape: internal/interfaces/types.go:20-30)."""
+        (reference shape: internal/interfaces/types.go:20-30). A key whose
+        text is byte for byte the last call's reuses that text's parse
+        (`_class_docs`); every call returns new classes, each with a new
+        `model_targets` list, since the cycle appends to it. The profile
+        counts the keys parsed and reused."""
         data = self._read_cm(CM_SERVICE_CLASSES)
+        docs: dict[str, tuple[str, _ClassDoc | None]] = {}
         out = []
-        for _, raw in sorted(data.items()):
-            try:
-                doc = yaml.safe_load(raw)
-            except yaml.YAMLError:
-                continue
-            if not isinstance(doc, dict) or "name" not in doc:
-                continue
-            targets = []
-            for entry in doc.get("data", []) or []:
-                targets.append(
-                    ModelTarget(
-                        model=str(entry.get("model", "")),
-                        slo_itl=float(entry.get("slo-tpot", 0) or 0),
-                        slo_ttft=float(entry.get("slo-ttft", 0) or 0),
-                        slo_tps=float(entry.get("slo-tps", 0) or 0),
-                    )
-                )
-            out.append(
-                ServiceClassSpec(
-                    name=str(doc["name"]),
-                    priority=int(doc.get("priority", 100) or 100),
-                    model_targets=targets,
-                )
-            )
+        parsed = 0
+        for key, raw in sorted(data.items()):
+            last = self._class_docs.get(key)
+            if last is not None and last[0] == raw:
+                doc = last[1]
+            else:
+                doc = _parse_class_doc(raw)
+                parsed += 1
+            docs[key] = (raw, doc)
+            if doc is not None:
+                name, priority, targets = doc
+                out.append(ServiceClassSpec(
+                    name=name, priority=priority, model_targets=list(targets)))
+        self._class_docs = docs
+        _prof.count("service_class_docs_parsed", parsed)
+        _prof.count("service_class_docs_reused", len(data) - parsed)
         return out
 
     def read_optimizer_and_capacity(self) -> tuple[OptimizerSpec, CapacitySpec]:

@@ -58,7 +58,11 @@ returns one shared no-op context. Names the port times this way:
 ``reconcile_collect``, ``reconcile_analyze``, ``reconcile_solve``,
 ``reconcile_actuate`` and ``reconcile_finish`` (the last opens after the
 cycle's own profile is sealed, so it charges the profiler active around
-the cycle, if any).
+the cycle, if any). Counters the reconcile cycle bumps on its own profile:
+``status_writes``, ``collect_fallback_variants``, and, inside
+``reconcile_collect``, ``service_class_docs_parsed`` and
+``service_class_docs_reused`` (the service-classes ConfigMap's keys whose
+text was parsed, and those whose unchanged text reused the last parse).
 
 Port of `inferno_tpu/obs/profiler.py`: the reference's hooks and
 document, plus `span`, a profiler clock, and profilers that nest: each

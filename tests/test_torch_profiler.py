@@ -45,15 +45,16 @@ PROCESS_DEPENDENT = ("jit_compiles", "jit_compile_ms", "jit_execute_ms")
 # the reference's counter -> the port's name for it
 RENAMED = {"jit_dispatches": "dispatches"}
 # the port's own counters: its spans' milliseconds, the planner's rows by
-# path, the reconcile cycle's status writes and collect fallbacks, the
-# kernel library's loads and the kernels' launches (the last two on
-# backend "cuda" only)
+# path, the reconcile cycle's status writes, collect fallbacks and
+# service-class documents parsed and reused, the kernel library's loads
+# and the kernels' launches (the last two on backend "cuda" only)
 PORT_ONLY = frozenset({
     "calculate_fleet_ms", "calculate_fleet_self_ms", "dispatch_ms", "kernel_library_load_ms",
     "solver_assign_ms", "solver_diff_ms", "solver_pools_ms", "solver_solution_ms",
     "plan_fold_ms", "plan_feed_ms", "plan_card_rows", "plan_host_rows",
     "reconcile_collect_ms", "reconcile_analyze_ms", "reconcile_solve_ms",
     "reconcile_actuate_ms", "status_writes", "collect_fallback_variants",
+    "service_class_docs_parsed", "service_class_docs_reused",
     "kernel_library_loads", "stats_kernel_launches", "bisect_kernel_launches",
     "plan_rows_kernel_launches",
 })
